@@ -1,7 +1,7 @@
-"""composablestatespacemodels_tpu: a TPU-native framework for composable
+"""composablestatespacemodels_tpu: a JAX framework for composable
 state-space models.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
+A ground-up JAX/XLA rebuild of the capabilities of
 jonnylaw/ComposableStateSpaceModels (Law & Wilkinson, "Composable models for
 online Bayesian analysis of streaming data", Stat Comput 28, 2018):
 
@@ -11,8 +11,8 @@ online Bayesian analysis of streaming data", Stat Comput 28, 2018):
   Ornstein-Uhlenbeck) composed with a left-biased semigroup operator;
 * bootstrap particle filtering, interpolation, forecasting and PMMH
   parameter inference, all expressed as jitted ``lax.scan`` programs;
-* particle- and chain-parallelism over TPU meshes via ``shard_map`` with ICI
-  collectives, and Pallas kernels for the fused hot paths.
+* particle- and chain-parallelism over device meshes via ``shard_map``
+  collectives.
 """
 
 __version__ = "0.1.0"
@@ -21,8 +21,7 @@ from . import inference, models, native, utils
 from .inference import (adaptive_pmmh, bootstrap_filter, forecast,
                         forecast_cloud, forecast_from_posterior, forecast_times,
                         interpolation_filter, kalman_filter, lgcp_filter,
-                        log_likelihood, make_pf_loglik,
-                        make_pf_loglik_chains, pilot_run,
+                        log_likelihood, make_pf_loglik, pilot_run,
                         pmmh_chains)
 from .inference.pmmh import pmmh
 from .models import (bernoulli, beta, branch, brownian_motion, brownian_params,
@@ -43,8 +42,7 @@ __all__ = [
     "forecast_cloud", "forecast_times", "forecast_from_posterior",
     "lgcp_filter",
     "interpolation_filter",
-    "pmmh", "pmmh_chains", "adaptive_pmmh", "make_pf_loglik",
-    "make_pf_loglik_chains", "pilot_run",
+    "pmmh", "pmmh_chains", "adaptive_pmmh", "make_pf_loglik", "pilot_run",
     "TimeSeries", "SimulatedData", "simulate", "simulate_regular",
     "simulate_lgcp",
 ]

@@ -10,8 +10,7 @@ from .kalman import KalmanResult, kalman_filter
 from .lgcp import LgcpResult, lgcp_filter
 from .pmmh import (PmmhResult, PmmhState, adaptive_pmmh,
                    effective_chain_size, flat_prior, gelman_rubin,
-                   make_pf_loglik, make_pf_loglik_chains,
-                   pilot_run, pmmh_chains,
+                   make_pf_loglik, pilot_run, pmmh_chains,
                    symmetric_transition)
 from .resampling import (effective_sample_size, exp_normalise,
                          identity_indices, multinomial_indices, resample,
@@ -20,7 +19,7 @@ from .resampling import (effective_sample_size, exp_normalise,
 
 __all__ = [
     "resampling", "kalman", "pmmh", "lgcp", "interpolation",
-    "PmmhResult", "PmmhState", "make_pf_loglik", "make_pf_loglik_chains",
+    "PmmhResult", "PmmhState", "make_pf_loglik",
     "pmmh_chains", "pilot_run",
     "adaptive_pmmh",
     "flat_prior", "symmetric_transition", "gelman_rubin",

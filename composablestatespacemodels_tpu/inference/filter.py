@@ -4,8 +4,9 @@ The reference's Akka ``Flow.scan(stepFilter)`` (ParticleFilter.scala:116-166)
 becomes one jitted scan:
 
 * particle propagation, weighting and the log-sum-exp update are fused
-  ``[N]``-wide vector ops (VPU / MXU via the design-vector contraction);
-* resampling is cumulative-sum + ``searchsorted`` (see
+  ``[N]``-wide vector ops (the weights through one design-vector
+  contraction);
+* resampling is a cumulative sum + closed-form position counts (see
   :mod:`.resampling`), executed under a scalar ``lax.cond`` so
   missing-observation steps skip the gather entirely;
 * irregular observation times and missing observations are *data*
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from functools import partial
 from typing import Optional
 
@@ -172,55 +172,6 @@ class FilterResult:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_block(n: int) -> int:
-    """Merge-kernel tile width for the transposed paths.
-
-    Tuned in the FULL filter (kernel-only sweeps mislead; see CLAUDE.md).
-    ``CSSM_KBLOCK`` overrides for tuning (ignored when unparseable,
-    non-positive, or not dividing N).  NB read at TRACE time: the jit
-    cache is keyed on shapes only, so set it before the first filter call
-    of a process (a sweep must use one process per value).
-    """
-    env = os.environ.get("CSSM_KBLOCK")
-    if env:
-        try:
-            b = int(env)
-        except ValueError:
-            b = 0
-        if b > 0 and n % b == 0:
-            return b
-    for b in (4096, 2048):
-        if n % b == 0:
-            return b
-    return 1024
-
-
-def _seed_base(key):
-    """Per-invocation int32 base for the in-kernel Mosaic PRNG streams.
-
-    The fused kernels draw their propagation noise from the Mosaic PRNG,
-    which takes a 32-bit seed.  Sampling a fresh ``randint`` seed per scan
-    step risks a birthday collision between two steps (~T^2/2^32 -- a
-    silently repeated noise stream); instead each filter invocation draws
-    ONE random base and derives the per-step seed deterministically with
-    :func:`_step_seed`, so seeds within a scan are distinct by
-    construction and the fused path is bit-reproducible given (key, step).
-    """
-    return jax.lax.bitcast_convert_type(
-        jax.random.bits(key, (1,), jnp.uint32), jnp.int32)
-
-
-def _step_seed(base, step):
-    """Distinct int32 kernel seed per scan step.
-
-    ``base ^ (step * odd)`` with a fixed odd multiplier (the int32 golden
-    ratio 0x9E3779B9): multiplication by an odd constant is a bijection
-    mod 2^32, so for a fixed base every step gets a distinct seed --
-    no within-scan collisions, unlike per-step sampled seeds.
-    """
-    return base ^ (step * jnp.int32(-1640531527))
-
-
 def _make_save_fn(model: Model, store, interval: float,
                   weighted: bool = False):
     """Save functions take ``(t, particles, wn, key)``; ``wn`` are the
@@ -272,398 +223,6 @@ def _make_save_fn(model: Model, store, interval: float,
     raise ValueError(f"unknown store mode {store!r}")
 
 
-def _make_save_fn_t(model: Model, store, interval: float,
-                    weighted: bool = False):
-    """Save functions for the transposed [d, N] particle layout (same
-    ``(t, x_t, wn, key)`` signature and ``weighted`` semantics as
-    :func:`_make_save_fn`)."""
-    if store == "ll" or store is None:
-        return lambda t, x_t, wn, key: ()
-    if store == "path":
-        if weighted:
-            def save(t, x_t, wn, key):
-                return x_t[:, _weighted_pick(x_t, wn, key)]
-        else:
-            def save(t, x_t, wn, key):
-                i = jax.random.randint(key, (), 0, x_t.shape[1])
-                return x_t[:, i]
-        return save
-    if store == "summary":
-        if weighted:
-            def save(t, x_t, wn, key):
-                d, n = x_t.shape
-                mean = jnp.sum(wn[None, :] * x_t, axis=1) / jnp.sum(wn)
-                etas = model.link(model.f_t(x_t, t))
-                eta_mean = model.link(model.f(mean, t))
-                ps_s, ps_e = _interval_levels(n, interval)
-                cols = jnp.concatenate(
-                    [x_t, etas[None].astype(x_t.dtype)], axis=0)
-                ps = [list(ps_s)] * d + [list(ps_e)]
-                if x_t.dtype == jnp.float32:
-                    from ..ops.selection import weighted_quantile_bits
-                    sel = weighted_quantile_bits(
-                        cols, wn, jnp.asarray(ps, jnp.float32))
-                else:
-                    sel = _weighted_quantile_sorted(cols, wn, ps)
-                return (eta_mean, sel[d, 0], sel[d, 1],
-                        mean, sel[:d, 0], sel[:d, 1])
-            return save
-
-        def save(t, x_t, wn, key):
-            n = x_t.shape[1]
-            k = math.floor(n * interval)
-            mean = jnp.mean(x_t, axis=1)
-            etas = model.link(model.f_t(x_t, t))   # [N] even when transposed
-            eta_mean = model.link(model.f(mean, t))
-            if x_t.dtype == jnp.float32:
-                # bisection selection instead of a per-step [d, N] sort
-                # (exact, bit-identical order statistics; the sort dwarfs
-                # the filter step itself at large N -- VERDICT r2 item 5).
-                # Indices wrap mod n: edge intervals make the sort path's
-                # static indices negative (s[:, -1] -> max element), which
-                # bisection must mirror rather than produce NaN
-                from ..ops.selection import kth_smallest_bits
-                d = x_t.shape[0]
-                cols = jnp.concatenate([x_t, etas[None]], axis=0)
-                ks = jnp.asarray(
-                    [[(n - k - 1) % n, (k - 1) % n]] * d   # state flavour
-                    + [[(n - k) % n, min(k, n - 1)]],      # eta flavour
-                    jnp.int32)
-                sel = kth_smallest_bits(cols, ks)      # [d+1, 2]
-                return (eta_mean, sel[d, 0], sel[d, 1],
-                        mean, sel[:d, 0], sel[:d, 1])
-            s = jnp.sort(x_t, axis=1)
-            s_lo, s_hi = s[:, n - k - 1], s[:, k - 1]
-            e_lo, e_hi = credible_interval_eta(etas, interval)
-            return (eta_mean, e_lo, e_hi, mean, s_lo, s_hi)
-        return save
-    if callable(store):
-        # preserve the documented (t, particles [N, d], key) contract: the
-        # transposed scan would otherwise hand the callable [d, N] columns
-        return lambda t, x_t, wn, key: store(t, x_t.T, key)
-    raise ValueError(f"unknown store mode {store!r}")
-
-
-def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
-                   n_particles: int, key, t0, x_init,
-                   store, ess_threshold, interval: float,
-                   fused_propagate: bool = False, unroll: int = 1,
-                   counts_scheme: str = "systematic"):
-    """Transposed-layout scan: particles as [d, N] with the particle axis on
-    TPU lanes, resampling via the Pallas merge-gather kernel with no
-    per-step relayouts (an [N, d] <-> [d, N] transpose at N ~ 1e6 costs
-    more than the entire resampling kernel).
-
-    With ``fused_propagate`` (the 'systematic-pallas-fused' scheme under
-    store modes the fully-fused scan cannot serve -- per-step summaries
-    need the *unpropagated* resampled cloud), the per-step propagation
-    runs through :func:`..ops.resample_kernel.propagate_weights_t`: the
-    exact diagonal affine-Gaussian transition with in-kernel Box-Muller
-    noise, plus the observation weights fused into a padding row when
-    the family provides ``kernel_log_density`` -- statistically (not
-    bitwise) equivalent to the XLA propagate this replaces.
-    """
-    from ..ops.resample_kernel import (propagate_weights_t,
-                                       sorted_gather_resample_t,
-                                       stratified_counts, systematic_counts)
-
-    counts_fn = (stratified_counts if counts_scheme == "stratified"
-                 else systematic_counts)
-
-    save_fn = _make_save_fn_t(model, store, interval,
-                              weighted=ess_threshold is not None)
-
-    k_init, k_scan = jax.random.split(key)
-    d = model.dim
-    d_pad = (-d) % 8  # DMA sublane alignment for the kernel
-    if x_init is None:
-        x_t = model.initial_state_t(params, k_init, n_particles)
-    else:
-        x_init = jnp.asarray(x_init)
-        x_t = (jnp.broadcast_to(x_init[:, None], (d, n_particles))
-               if x_init.ndim == 1 else x_init.T)
-
-    dtype = x_t.dtype
-    n = n_particles
-    kblock = _kernel_block(n)
-
-    if fused_propagate:
-        sde = model.sde
-        sp = model.sde_params(params)
-        wspec = model.obs.kernel_log_density()
-        weighted = wspec is not None
-        if weighted:
-            make_consts, _ = wspec
-            obs_scale = model.obs_scale(params)
-            dk = d + (d_pad if d_pad else 8)
-            wrow = dk - 1
-        else:
-            dk = d + d_pad
-            wrow = None
-        # one random base per invocation; per-step seeds derived from the
-        # step index (distinct within the scan -- see _step_seed)
-        seed_base = _seed_base(jax.random.fold_in(key, 0x5eed))
-
-    def step(carry, inp):
-        x_t, wn, t_prev, ll, ess = carry
-        t, y, mask, k, si = inp
-        k_prop, k_res, k_save = jax.random.split(k, 3)
-
-        y_safe = jnp.where(mask, y, 0.0)
-        if fused_propagate:
-            a, bb, q = sde.transition_coeffs(sp, t - t_prev)
-            cols = [a, bb, jnp.sqrt(q)]
-            consts = None
-            if weighted:
-                cols.append(model.design_vector(t))
-                consts = make_consts(y_safe, obs_scale)
-            coef = jnp.stack(cols, axis=1).astype(dtype)
-            if dk > d:
-                coef = jnp.concatenate(
-                    [coef, jnp.zeros((dk - d, len(cols)), dtype)], axis=0)
-            seed = _step_seed(seed_base, si)
-            xp = (jnp.concatenate([x_t, jnp.zeros((dk - d, n), dtype)],
-                                  axis=0) if dk > d else x_t)
-            x1p = propagate_weights_t(
-                xp, coef, seed, block=kblock,
-                weight_family=model.obs if weighted else None,
-                weight_consts=consts, weight_row=wrow)
-            x1 = x1p[:d]
-            if weighted:
-                logw = x1p[wrow]
-            else:
-                logw = model.log_density(params, model.f_t(x1, t), y_safe)
-        else:
-            x1 = model.step_t(params, k_prop, x_t, t - t_prev)
-            gamma = model.f_t(x1, t)
-            logw = model.log_density(params, gamma, y_safe)
-        logw = jnp.where(mask, logw, 0.0)
-
-        # carry normalised weights across steps exactly as _filter_impl does:
-        # skipped resamples (ess_threshold) keep their weight state
-        maxw = jnp.max(logw)
-        u = wn * jnp.exp(logw - maxw)
-        total = jnp.sum(u)
-        ll_inc = jnp.where(mask, maxw + jnp.log(total), 0.0)
-        wn1 = u / total
-        ess1 = jnp.where(
-            mask, jnp.floor(1.0 / jnp.sum(wn1 * wn1)).astype(jnp.int32), ess)
-
-        if ess_threshold is None:
-            do_resample = mask
-        else:
-            do_resample = mask & (ess1 < ess_threshold * n)
-
-        def yes(args):
-            xp, wp = args
-            counts = counts_fn(k_res, wp)
-            if d_pad:
-                xp = jnp.concatenate(
-                    [xp, jnp.zeros((d_pad, n), dtype)], axis=0)
-            out = sorted_gather_resample_t(xp, counts, block=kblock)
-            out = out[:d] if d_pad else out
-            return out, jnp.full((n,), 1.0 / n, dtype=dtype)
-
-        x2, wn2 = jax.lax.cond(do_resample, yes, lambda a: a, (x1, wn1))
-        ll1 = ll + ll_inc
-        out = (save_fn(t, x2, wn2, k_save), ll1, ess1)
-        return (x2, wn2, t, ll1, ess1), out
-
-    t_start = data.ts[0] if t0 is None else jnp.asarray(t0, dtype)
-    n_steps = data.ts.shape[0]
-    keys = jax.random.split(k_scan, n_steps)
-    steps = jnp.arange(n_steps, dtype=jnp.int32)
-    wn0 = jnp.full((n,), 1.0 / n, dtype=dtype)
-    init = (x_t, wn0, t_start, jnp.asarray(0.0, dtype),
-            jnp.asarray(n, jnp.int32))
-    (xf_t, _, _, ll, _), (saved, ll_hist, ess_hist) = jax.lax.scan(
-        step, init, (data.ts, data.ys, data.mask, keys, steps),
-        unroll=unroll)
-
-    summary = None
-    path = None
-    if store == "summary":
-        eta_mean, e_lo, e_hi, s_mean, s_lo, s_hi = saved
-        summary = PfSummary(data.ts, eta_mean, e_lo, e_hi, s_mean, s_lo, s_hi)
-    elif store == "path":
-        path = saved
-
-    return FilterResult(ll, ll_hist, ess_hist, xf_t.T, summary, path)
-
-
-def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
-                         n_particles: int, key, t0, x_init,
-                         store, ess_threshold, interval: float,
-                         unroll: int = 1):
-    """Transposed scan with resampling and the NEXT step's propagation fused
-    into one Pallas kernel (``sorted_gather_resample_propagate_t``).
-
-    The carried cloud is always already propagated to the current
-    observation time: per step it is weighted (``ll += max + log(total)``,
-    ParticleFilter.scala:124-127), then the kernel resamples and applies
-    the exact diagonal affine-Gaussian transition x' = a x + b + sqrt(q) z
-    (``Sde.transition_coeffs``) for the next inter-observation interval --
-    eliminating one full HBM read+write of the cloud per step.  The
-    propagation noise is drawn in-kernel (Box-Muller over the Mosaic PRNG),
-    so this path is statistically -- not bitwise -- equivalent to
-    ``'systematic-pallas'`` (which stays the bit-compared reference path).
-
-    Restrictions: models with exact transitions only (transition_coeffs);
-    ``store`` in {'ll', None} (per-step summaries would need the
-    *unpropagated* resampled cloud, which this path never materialises).
-    """
-    from ..ops.resample_kernel import sorted_gather_resample_propagate_t
-    from ..ops.scan_kernel import systematic_counts_cols
-
-    if store not in ("ll", None):
-        raise ValueError(
-            "resample='systematic-pallas-fused' supports store='ll' only "
-            f"(got {store!r}): per-step summaries need the unpropagated "
-            "resampled cloud; use resample='systematic-pallas'")
-
-    sde = model.sde
-    sp = model.sde_params(params)
-    d = model.dim
-    d_pad = (-d) % 8  # DMA sublane alignment for the kernel
-
-    # weight fusion: when the (leftmost) observation family provides the
-    # kernel hook, the kernel ALSO computes the next step's log-weights
-    # into a reserved padding row -- the scan then never re-reads the
-    # cloud to weight it.  dk = padded row count, wrow = the weight row.
-    wspec = model.obs.kernel_log_density()
-    weighted = wspec is not None
-    if weighted:
-        make_consts, _ = wspec
-        obs_scale = model.obs_scale(params)
-        dk = d + (d_pad if d_pad else 8)
-        wrow = dk - 1
-    else:
-        dk = d + d_pad
-        wrow = None
-
-    k_init, k_first, k_scan = jax.random.split(key, 3)
-    if x_init is None:
-        x_t = model.initial_state_t(params, k_init, n_particles)
-    else:
-        x_init = jnp.asarray(x_init)
-        x_t = (jnp.broadcast_to(x_init[:, None], (d, n_particles))
-               if x_init.ndim == 1 else x_init.T)
-
-    dtype = x_t.dtype
-    n = n_particles
-    kblock = _kernel_block(n)
-
-    t_start = data.ts[0] if t0 is None else jnp.asarray(t0, dtype)
-    # pre-propagate to the first observation time: the scan carries clouds
-    # already advanced to the step's time
-    x_t = model.step_t(params, k_first, x_t, data.ts[0] - t_start)
-    # next-step arrays, shifted by one; the last entries give dt 0 (the
-    # final kernel transition is then the identity, so final_particles is
-    # the filtering cloud at the last time, as the unfused paths) and an
-    # unused trailing weight computation
-    ts = data.ts
-    dt_next = jnp.concatenate([ts[1:] - ts[:-1], jnp.zeros((1,), ts.dtype)])
-    t_next = jnp.concatenate([ts[1:], ts[-1:]])
-    y_next = jnp.concatenate([data.ys[1:], jnp.zeros((1,), data.ys.dtype)])
-    m_next = jnp.concatenate(
-        [data.mask[1:], jnp.zeros((1,), data.mask.dtype)])
-
-    def _weights_xla(x_real, t, y, mask):
-        gamma = model.f_t(x_real, t)
-        return model.log_density(params, gamma, jnp.where(mask, y, 0.0))
-
-    if weighted:
-        logw0 = _weights_xla(x_t, ts[0], data.ys[0], data.mask[0])
-        x_t = jnp.concatenate(
-            [x_t, jnp.zeros((dk - d, n), dtype)], axis=0
-        ).at[wrow].set(logw0)
-
-    # one random base per invocation; per-step seeds derived from the step
-    # index (distinct within the scan -- see _step_seed)
-    seed_base = _seed_base(jax.random.fold_in(key, 0x5eed))
-
-    def step(carry, inp):
-        x_t, wn, ll, ess = carry
-        t, y, mask, dtn, tn, yn, mn, k, si = inp
-        k_res, k_prop, k_seed = jax.random.split(k, 3)
-
-        if weighted:
-            logw = x_t[wrow]
-        else:
-            logw = _weights_xla(x_t, t, y, mask)
-        logw = jnp.where(mask, logw, 0.0)
-
-        maxw = jnp.max(logw)
-        u = wn * jnp.exp(logw - maxw)
-        total = jnp.sum(u)
-        ll_inc = jnp.where(mask, maxw + jnp.log(total), 0.0)
-        wn1 = u / total
-        ess1 = jnp.where(
-            mask, jnp.floor(1.0 / jnp.sum(wn1 * wn1)).astype(jnp.int32), ess)
-
-        if ess_threshold is None:
-            do_resample = mask
-        else:
-            do_resample = mask & (ess1 < ess_threshold * n)
-
-        a, b, q = sde.transition_coeffs(sp, dtn)
-        cols = [a, b, jnp.sqrt(q)]
-        consts = None
-        if weighted:
-            cols.append(model.design_vector(tn))
-            consts = make_consts(jnp.where(mn, yn, 0.0), obs_scale)
-        coef = jnp.stack(cols, axis=1).astype(dtype)
-        if dk > d:
-            coef = jnp.concatenate(
-                [coef, jnp.zeros((dk - d, len(cols)), dtype)], axis=0)
-        seed = _step_seed(seed_base, si)
-
-        def yes(args):
-            xp, wp = args
-            # counts go straight to the merge kernel's operand layouts
-            # (c_cols + maxima tiles) -- the flat [N] counts array never
-            # exists and the XLA transpose/pad/broadcast prepass shrinks
-            # to scalar work (VERDICT r4 #3).  Same uniform draw and
-            # bit-identical count values as systematic_counts(k_res, wp).
-            u = jax.random.uniform(k_res, (), wp.dtype)
-            cols = systematic_counts_cols(wp, jnp.sum(wp), u, block=kblock)
-            if not weighted and d_pad:
-                xp = jnp.concatenate(
-                    [xp, jnp.zeros((d_pad, n), dtype)], axis=0)
-            out = sorted_gather_resample_propagate_t(
-                xp, None, coef, seed, block=kblock,
-                weight_family=model.obs if weighted else None,
-                weight_consts=consts, weight_row=wrow, counts_cols=cols)
-            if not weighted and d_pad:
-                out = out[:d]
-            return out, jnp.full((n,), 1.0 / n, dtype=dtype)
-
-        def no(args):
-            xp, wp = args
-            if weighted:
-                x1 = model.step_t(params, k_prop, xp[:d], dtn)
-                logw_n = _weights_xla(x1, tn, yn, mn)
-                x1 = jnp.concatenate(
-                    [x1, jnp.zeros((dk - d, n), dtype)], axis=0
-                ).at[wrow].set(logw_n)
-                return x1, wp
-            return model.step_t(params, k_prop, xp, dtn), wp
-
-        x2, wn2 = jax.lax.cond(do_resample, yes, no, (x_t, wn1))
-        ll1 = ll + ll_inc
-        return (x2, wn2, ll1, ess1), (ll1, ess1)
-
-    keys = jax.random.split(k_scan, ts.shape[0])
-    steps = jnp.arange(ts.shape[0], dtype=jnp.int32)
-    wn0 = jnp.full((n,), 1.0 / n, dtype=dtype)
-    init = (x_t, wn0, jnp.asarray(0.0, dtype), jnp.asarray(n, jnp.int32))
-    (xf_t, _, ll, _), (ll_hist, ess_hist) = jax.lax.scan(
-        step, init,
-        (ts, data.ys, data.mask, dt_next, t_next, y_next, m_next, keys,
-         steps), unroll=unroll)
-    return FilterResult(ll, ll_hist, ess_hist, xf_t[:d].T, None, None)
-
-
 @partial(jax.jit,
          static_argnames=("model", "n_particles", "resample", "store",
                           "ess_threshold", "interval", "unroll"))
@@ -671,32 +230,9 @@ def _filter_impl(model: Model, params: Tree, data: TimeSeries,
                  n_particles: int, key, t0, x_init,
                  resample: str, store, ess_threshold, interval: float,
                  unroll: int = 1):
-    """``unroll``: forwarded to the per-step ``lax.scan`` -- at reference
-    PMMH shapes (N=100) the scan's ~3 us/step fixed overhead IS the
-    workload, and unrolling amortises it (VERDICT r3 #6; sweep recorded
-    in bench.py / docs/performance.md)."""
-    if resample == "systematic-pallas":
-        return _filter_impl_t(model, params, data, n_particles, key, t0,
-                              x_init, store, ess_threshold, interval,
-                              unroll=unroll)
-    if resample == "stratified-pallas":
-        # the merge kernel consumes ANY monotone counts; stratified
-        # counts are closed-form too (Resampling.scala:78-86)
-        return _filter_impl_t(model, params, data, n_particles, key, t0,
-                              x_init, store, ess_threshold, interval,
-                              unroll=unroll, counts_scheme="stratified")
-    if resample == "systematic-pallas-fused":
-        if store in ("ll", None):
-            return _filter_impl_t_fused(model, params, data, n_particles,
-                                        key, t0, x_init, store,
-                                        ess_threshold, interval,
-                                        unroll=unroll)
-        # store modes need the unpropagated resampled cloud, so the
-        # propagate cannot fold into the resample kernel; it runs as a
-        # standalone fused propagate(+weights) kernel instead
-        return _filter_impl_t(model, params, data, n_particles, key, t0,
-                              x_init, store, ess_threshold, interval,
-                              fused_propagate=True, unroll=unroll)
+    """``unroll``: forwarded to the per-step ``lax.scan``.  At reference
+    PMMH shapes (N=100) the scan's fixed per-step cost is most of the
+    work, and unrolling can amortise it."""
     resample_fn = rs.get_scheme(resample)
     save_fn = _make_save_fn(model, store, interval,
                             weighted=ess_threshold is not None)
@@ -800,18 +336,7 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
       n_particles: N.
       key: PRNG key.
       resample: 'systematic' | 'stratified' | 'multinomial' | 'residual' |
-        'identity' or a custom ``(key, weights) -> indices`` kernel; on
-        TPU, 'systematic-pallas' (or 'stratified-pallas') runs the whole
-        scan in transposed [d, N]
-        layout with the merge-gather resampling kernel (bit-compared
-        against 'systematic'/'stratified'; requires N divisible by 1024
-        -- see ops/resample_kernel.py), and 'systematic-pallas-fused'
-        additionally runs the exact propagation with in-kernel noise
-        (the headline perf path; statistically -- not bitwise --
-        equivalent; models with exact transitions only): under
-        ``store='ll'`` the propagate folds into the resample kernel's
-        output pipeline; other store modes keep the resampled cloud and
-        run a standalone fused propagate(+weights) kernel instead.
+        'identity' or a custom ``(key, weights) -> indices`` kernel.
       t0: filter start time (default: time of the first observation, as the
         reference ``llFilter``/``filter``, ParticleFilter.scala:137-158).
       initial_state: optional fixed initial state ``[d]`` (FilterInit) or a
@@ -828,26 +353,19 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
         large N it only bloats compile time.  Default 1.
       mesh: optional ``jax.sharding.Mesh`` with a
         :data:`~..parallel.mesh.PARTICLE_AXIS` axis: shard the particle
-        cloud over it and run the multi-chip filter (distributed systematic
-        resampling over ICI; see :mod:`..parallel.sharded_filter`).
-        ``resample='systematic'`` (default semantics) and
-        ``'systematic-pallas-fused'`` (fused propagate on every shard)
-        are supported on a mesh.
+        cloud over it and run the multi-device filter (distributed
+        systematic resampling; see :mod:`..parallel.sharded_filter`).
+        Only ``resample='systematic'`` is supported on a mesh.
     """
+    rs.get_scheme(resample)   # an unknown name raises, listing the schemes
     if mesh is not None:
         from ..parallel.sharded_filter import sharded_bootstrap_filter
 
         if unroll != 1:
             raise ValueError("unroll is single-device only (got mesh=)")
-        if resample == "systematic-pallas-fused":
-            # fused propagate on every shard; the distributed systematic
-            # resample itself is unchanged
-            mesh_kwargs = dict(mesh_kwargs, fused_propagate=True,
-                               transposed=True)
-        elif resample != "systematic":
+        if resample != "systematic":
             raise ValueError(
-                "mesh= requires resample='systematic' (or "
-                f"'systematic-pallas-fused'; got {resample!r}); "
+                f"mesh= requires resample='systematic' (got {resample!r}); "
                 "distributed resampling shares one uniform across shards")
         return sharded_bootstrap_filter(
             model, params, data, n_particles, key, mesh, t0=t0,

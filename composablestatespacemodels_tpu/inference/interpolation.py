@@ -4,7 +4,7 @@ The reference ``FilterInterpolate`` (ParticleFilter.scala:273-311) carries a
 ``Vector[List[State]]`` of full ancestral paths and resamples entire paths at
 every observation -- memory-hostile copying (SURVEY.md section 7 step 8).
 
-TPU design: store the *pre-resample* states ``[T, N, d]`` and the per-step
+Design: store the *pre-resample* states ``[T, N, d]`` and the per-step
 resampling indices ``[T, N]`` during one forward ``lax.scan``, then
 reconstruct the surviving ancestral paths with a backward index scan -- the
 standard genealogy trick.  Total memory O(T*N*d) with zero path copying
@@ -137,7 +137,7 @@ def _interp_impl(model: Model, params: Tree, data: TimeSeries,
     # Re-run the propagation with the SAME per-step keys (k_prop is the
     # first split of each stored key, exactly as in `step`), gather the
     # smoothed cloud x1[ps[t]] and reduce it to summaries in place.  Only
-    # the [T, N] int32 genealogy (anc + ps) ever lives in HBM -- the
+    # the [T, N] int32 genealogy (anc + ps) ever lives in device memory -- the
     # [T, N, d] pre-resample history is never materialised.
     def intervals(cloud, eta):
         # Two per-step [N] sorts dominate the replay at large N; 32-round
@@ -180,7 +180,8 @@ def _interp_impl(model: Model, params: Tree, data: TimeSeries,
 def interpolation_memory_bytes(n_steps: int, n_particles: int,
                                dim: int, itemsize: int = 4,
                                store: str = "path") -> int:
-    """Peak HBM footprint of :func:`interpolation_filter`'s history arrays.
+    """Peak device-memory footprint of :func:`interpolation_filter`'s
+    history arrays.
 
     ``store='path'``: the pre-resample states ``[T, N, d]``, the
     reconstructed paths ``[T, N, d]`` (live simultaneously during the
@@ -211,18 +212,18 @@ def interpolation_filter(model: Model, params: Tree, data: TimeSeries,
 
     Memory bound: with ``store='path'`` (default) this filter holds the FULL
     ``[T, N, d]`` pre-resample history plus the reconstructed ``[T, N, d]``
-    paths in HBM -- :func:`interpolation_memory_bytes` gives the footprint.
-    On a 16 GB chip that caps ``T * N * d`` at roughly ``2e9`` f32 elements
-    (e.g. ``T=1000, d=7`` -> ``N ~ 2.8e5``; the reference shapes, N ~ 1e3,
-    are three orders of magnitude inside it).
+    paths in device memory -- :func:`interpolation_memory_bytes` gives the
+    footprint: ``T * N * (8d + 4)`` bytes, about 63 GB at ``T=1000, d=7,
+    N=2^20`` (the reference shapes, N ~ 1e3, are three orders of magnitude
+    inside any device).
 
     ``store='summary'`` drops ``paths`` (``None`` in the result) and keeps
     every summary column: the forward scan stores only the ``[T, N]`` int32
     genealogy, then a second scan REPLAYS the propagation deterministically
     from the same per-step PRNG keys, gathers each step's smoothed cloud and
     reduces it to mean/interval in place.  Peak history footprint falls to
-    ``2 * T * N * 4`` bytes (7.5x smaller at d=7; N ~ 2e6 at T=1000 on a
-    16 GB chip) for one extra propagation pass -- cheap, since
+    ``2 * T * N * 4`` bytes (7.5x smaller at d=7: 8.4 GB at T=1000,
+    N=2^20) for one extra propagation pass -- cheap, since
     ``model.step`` is a tiny fraction of the filter's cost.
     """
     if store not in ("path", "summary"):

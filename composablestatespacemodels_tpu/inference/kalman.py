@@ -8,7 +8,9 @@ filter.  Used by the test-suite to cross-check the particle filter's log
 marginal likelihood and filtering means.
 
 One ``lax.scan`` over time; the state covariance is a full [d, d] matrix
-(the scalar observation couples dimensions through F(t)).
+(the scalar observation couples dimensions through F(t)).  Every product
+runs at full float32 precision (``Precision.HIGHEST``): an oracle must not
+inherit a GPU's TF32 default for float32 matmuls.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..models.tree import Tree
 from ..utils.data import TimeSeries
 
 _HALF_LOG_2PI = 0.9189385332046727
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_pytree_node_class
@@ -64,9 +67,9 @@ def _kalman_impl(model: Model, params: Tree, data: TimeSeries, t0):
         P_pred = a[:, None] * P * a[None, :] + jnp.diag(q)
 
         h = model.design_vector(t)
-        y_hat = h @ m_pred
-        ph = P_pred @ h
-        s = h @ ph + r
+        y_hat = jnp.dot(h, m_pred, precision=_HIGHEST)
+        ph = jnp.dot(P_pred, h, precision=_HIGHEST)
+        s = jnp.dot(h, ph, precision=_HIGHEST) + r
 
         k = ph / s
         innov = y - y_hat

@@ -6,7 +6,7 @@ cumulative hazard integral sum(exp(f(x_k, t_k)) * h), and weights particles by
 
     log w = gamma(t) - integral lambda dt      (ParticleFilter.scala:217)
 
-TPU design: the data-dependent number of fine steps ``ceil(dt * 10^p)``
+Design: the data-dependent number of fine steps ``ceil(dt * 10^p)``
 (ParticleFilter.scala:190) is resolved on the host into ONE flat fine grid
 over the whole series -- the union of every segment's Euler substeps, each
 slot tagged with static flags (hazard-eval / advance-state / observation) --
@@ -166,20 +166,10 @@ def _lgcp_impl(model: Model, params: Tree, grid, n_particles: int, key,
     from .filter import credible_interval_eta, credible_interval_state
 
     t_eval, hflag, aflag, oflag, t_obs, zflag, obs_idx = grid
-    if resample == "systematic-pallas":
-        # large-N TPU path: closed-form counts + the merge-gather kernel
-        # ([N, d] boundary wrapper) instead of the XLA scatter+cummax
-        # ancestor fill (~7 ms at N=1e6); requires N divisible by 1024
-        from ..ops.resample_kernel import (sorted_gather_resample,
-                                          systematic_counts)
+    resample_fn = rs.get_scheme(resample)
 
-        def resample_gather(k, x, w):
-            return sorted_gather_resample(x, systematic_counts(k, w))
-    else:
-        resample_fn = rs.get_scheme(resample)
-
-        def resample_gather(k, x, w):
-            return x[resample_fn(k, w)]
+    def resample_gather(k, x, w):
+        return x[resample_fn(k, w)]
     h = 10.0 ** (-precision)
     sp = model.sde_params(params)
 
@@ -314,20 +304,17 @@ def lgcp_filter(model: Model, params: Tree, data: TimeSeries,
     O(sum of gaps / h) -- independent of the largest single gap -- and the
     whole filter compiles once per dataset shape.
 
-    ``resample='systematic-pallas'`` routes the resampling through the
-    merge-gather kernel (large N on TPU; N divisible by 1024) instead of
-    the XLA scatter ancestor fill.
-
     ``mesh=`` shards the particle axis over ``mesh[axis]`` (default axis
     :data:`~..parallel.mesh.PARTICLE_AXIS`): scalar weight collectives +
     the distributed systematic resampler + bisection eta/state order
-    statistics, no global cloud on any shard (the multi-chip tier of
+    statistics, no global cloud on any shard (the multi-device tier of
     :func:`~.filter.bootstrap_filter`, applied to the flat fine-grid
     scan).  Systematic resampling only, as ``bootstrap_filter(mesh=)``.
     The sharded order statistics run the float32 bisection selector, so
     eta/state quantiles are f32-precise even under ``jax_enable_x64``.
     """
     model.validate_params(params)
+    rs.get_scheme(resample)   # an unknown name raises, listing the schemes
     grid = _build_fine_grid(np.asarray(data.ts, np.float64), precision)
     if mesh is not None:
         if resample != "systematic":

@@ -1,10 +1,10 @@
-"""Particle-marginal Metropolis-Hastings (PMMH), TPU-native.
+"""Particle-marginal Metropolis-Hastings (PMMH).
 
 The reference drives PMMH through a lazy breeze MarkovChain wrapped in an Akka
 Source (PMMH.scala:85-98).  Here the whole chain is one ``lax.scan`` whose
 body inlines a full particle-filter sweep -- iterations never leave the
 device, and independent chains vectorise with ``vmap`` (and shard across
-chips over a mesh axis, see :mod:`..parallel`).
+devices over a mesh axis, see :mod:`..parallel`).
 
 Semantic invariants preserved (PMMH.scala):
 
@@ -106,8 +106,7 @@ class PmmhResult:
 def make_pf_loglik(model: Model, data: TimeSeries, n_particles: int,
                    resample: str = "systematic",
                    store_state: bool = False,
-                   unroll: int = 1,
-                   fused_sweep: bool = False) -> Callable:
+                   unroll: int = 1) -> Callable:
     """Bundle a model + data into ``(key, params) -> ll``: the reference
     ``BootstrapFilter`` Reader (package.scala:23-24,
     ParticleFilter.filterLlState :346-348).
@@ -120,34 +119,8 @@ def make_pf_loglik(model: Model, data: TimeSeries, n_particles: int,
     :func:`pmmh(store_state=True) <pmmh>` carries through the chain.
 
     ``unroll`` forwards to the filter scan -- at the reference's N~100
-    the scan's fixed per-step cost dominates PMMH throughput (VERDICT r3
-    #6; sweep in docs/performance.md).
-
-    ``fused_sweep`` evaluates the likelihood through the fused PF sweep
-    kernel (:mod:`..ops.sweep_kernel`; TPU, n_particles <= 1024,
-    exact-transition models, kernel-hook families): the whole T-step
-    filter runs in ONE Pallas launch (minimum batch of 8 lane-width
-    chains, the requested chain in row 0) -- ~2x single-chain PMMH
-    throughput; use :func:`make_pf_loglik_chains` +
-    ``pmmh_chains(pf_ll_chains=)`` when running many chains.  Composes
-    with ``store_state``: the sweep kernel returns the final resampled
-    clouds (``x_final``), and one particle is sampled from row 0's.
+    the scan's fixed per-step cost dominates PMMH throughput.
     """
-    if fused_sweep:
-        pf_all = make_pf_loglik_chains(model, data, n_particles,
-                                       store_state=store_state)
-
-        def pf_ll_sweep(key, params):
-            params_b = jax.tree_util.tree_map(
-                lambda x: jnp.broadcast_to(jnp.asarray(x)[None],
-                                           (8,) + jnp.shape(x)), params)
-            out = pf_all(key, params_b)
-            if store_state:
-                return out[0][0], out[1][0]
-            return out[0]
-
-        return pf_ll_sweep
-
     def pf_ll(key, params):
         return bootstrap_filter(model, params, data, n_particles, key,
                                 resample=resample, store="ll",
@@ -161,73 +134,6 @@ def make_pf_loglik(model: Model, data: TimeSeries, n_particles: int,
         return res.ll, res.final_particles[i]
 
     return pf_ll_state if store_state else pf_ll
-
-
-def make_pf_loglik_chains(model: Model, data: TimeSeries, n_particles: int,
-                          interpret: bool = False,
-                          store_state: bool = False) -> Callable:
-    """Batched-chains log-likelihood via the fused sweep kernel.
-
-    Returns ``(key, params_batched) -> ll [B]`` evaluating EVERY chain's
-    full bootstrap-filter sweep in ONE Pallas launch
-    (:func:`..ops.sweep_kernel.pf_sweep_chains`) -- the TPU-native form
-    of the reference's per-chain ``BootstrapFilter`` Reader
-    (package.scala:23-24) at MCMC shapes.  Statistically equivalent to
-    ``vmap`` of :func:`make_pf_loglik`'s callable (different PRNG
-    streams); requires f32, ``n_particles <= 1024``, exact-transition
-    SDEs and an observation family with the ``kernel_log_density`` hook.
-    Feed to :func:`pmmh_chains` as ``pf_ll_chains=``.
-
-    With ``store_state`` the callable returns ``(ll [B], state [B, d])``
-    -- per chain, one particle sampled uniformly from the final
-    (resampled, hence uniformly weighted) cloud the kernel already
-    returns, the reference ``filterLlState`` sampled latent state
-    (ParticleFilter.scala:346-357) batched over chains.
-    """
-    from ..ops.sweep_kernel import pf_sweep_chains
-    from .filter import _seed_base
-
-    wspec = model.obs.kernel_log_density()
-    if wspec is None:
-        raise ValueError(
-            f"{type(model.obs).__name__} has no kernel_log_density hook")
-    make_consts, _ = wspec
-    sde = model.sde
-    ts = data.ts
-    dts = jnp.concatenate([jnp.zeros((1,), ts.dtype), ts[1:] - ts[:-1]])
-    design = jax.vmap(model.design_vector)(ts)          # [T, d]
-    y_safe = jnp.where(data.mask, data.ys, 0.0)
-
-    def pf_ll_all(key, params_b):
-        k_init, k_seed, k_pick = jax.random.split(key, 3)
-        sp_b = jax.vmap(model.sde_params)(params_b)
-
-        def coefs_for_dt(dt):
-            def one(sp):
-                a, b, q = sde.transition_coeffs(sp, dt)
-                return jnp.stack([a, b, jnp.sqrt(q)], axis=-1)
-            return jax.vmap(one)(sp_b)
-
-        coef = jax.vmap(coefs_for_dt)(dts)              # [T, B, d, 3]
-        scale_b = jax.vmap(model.obs_scale)(params_b)   # [B]
-        wconsts = jax.vmap(lambda y: jax.vmap(
-            lambda s: make_consts(y, s))(scale_b))(y_safe)   # [T, B, K]
-        n_chains = jax.tree_util.tree_leaves(params_b)[0].shape[0]
-        x0 = jax.vmap(
-            lambda p, k: model.initial_state_t(p, k, n_particles))(
-                params_b, jax.random.split(k_init, n_chains))  # [B, d, n]
-        seed = _seed_base(k_seed)
-        ll, xf = pf_sweep_chains(x0, coef, design, wconsts, data.mask, seed,
-                                 weight_family=model.obs,
-                                 interpret=interpret)
-        if store_state:
-            i = jax.random.randint(k_pick, (n_chains,), 0, n_particles)
-            state = jnp.take_along_axis(
-                xf, i[:, None, None], axis=2)[:, :, 0]       # [B, d]
-            return ll, state
-        return ll
-
-    return pf_ll_all
 
 
 @jax.tree_util.register_pytree_node_class
@@ -378,26 +284,11 @@ def pmmh_chains(key, init_params: Tree, pf_ll: Callable, proposal: Callable,
                 prior: Callable = flat_prior,
                 log_transition: Callable = symmetric_transition,
                 approx: bool = False,
-                store_state: bool = False,
-                pf_ll_chains: Optional[Callable] = None) -> PmmhResult:
-    """Run several independent chains with ``vmap`` (the TPU-native
-    replacement for the reference's ``mapAsync(2)`` thread parallelism,
+                store_state: bool = False) -> PmmhResult:
+    """Run several independent chains with ``vmap`` (the replacement for
+    the reference's ``mapAsync(2)`` thread parallelism,
     DetermineParameters.scala:68-69).  Outputs gain a leading chain axis.
-
-    ``pf_ll_chains``: optional batched evaluator ``(key, params_batched)
-    -> ll [n_chains]`` (see :func:`make_pf_loglik_chains`) -- all chains'
-    filter sweeps run in ONE fused Pallas kernel instead of a vmapped
-    per-chain scan, removing the per-step launch overhead that binds the
-    vmapped path at MCMC shapes.  ``pf_ll`` is ignored when given.  With
-    ``store_state`` the evaluator must be built with
-    ``make_pf_loglik_chains(..., store_state=True)`` (returns
-    ``(ll [B], state [B, d])``); the result then carries per-chain joint
-    ``(params, state)`` draws exactly as the vmapped path does.
     """
-    if pf_ll_chains is not None:
-        return _pmmh_chains_fused(key, init_params, pf_ll_chains, proposal,
-                                  n_iters, n_chains, prior, log_transition,
-                                  approx, store_state)
     keys = jax.random.split(key, n_chains)
 
     @partial(jax.jit, static_argnames=())
@@ -411,78 +302,6 @@ def pmmh_chains(key, init_params: Tree, pf_ll: Callable, proposal: Callable,
         return jax.vmap(one)(keys)
 
     return run_all(keys, init_params)
-
-
-@partial(jax.jit, static_argnames=("pf_ll_chains", "proposal", "prior",
-                                   "log_transition", "n_iters", "n_chains",
-                                   "approx", "store_state"))
-def _pmmh_chains_fused(key, init_params, pf_ll_chains, proposal, n_iters,
-                       n_chains, prior, log_transition, approx,
-                       store_state=False):
-    """Batched MH scan: the proposal/accept step is vmapped XLA (tiny),
-    the likelihood of ALL chains comes from one fused sweep per iteration."""
-    ftype = jnp.result_type(float)
-    params0 = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(jnp.asarray(x)[None],
-                                   (n_chains,) + jnp.shape(x)), init_params)
-
-    def eval_ll(k, p_b):
-        out = pf_ll_chains(k, p_b)
-        return out if store_state else (out, ())
-
-    def mh_step(carry, inp):
-        params_b, ll_b, st_b, acc_b = carry
-        k, i = inp
-        k_prop, k_pf, k_pf_old, k_u = jax.random.split(k, 4)
-        prop_b = jax.vmap(proposal)(jax.random.split(k_prop, n_chains),
-                                    params_b)
-        ll_prop, s_prop = eval_ll(k_pf, prop_b)
-        if approx:
-            ll_cur, s_cur = eval_ll(k_pf_old, params_b)
-        else:
-            ll_cur, s_cur = ll_b, st_b
-        a = (ll_prop + jax.vmap(log_transition)(prop_b, params_b)
-             + jax.vmap(prior)(prop_b)
-             - jax.vmap(log_transition)(params_b, prop_b) - ll_cur
-             - jax.vmap(prior)(params_b))
-        accept = (jnp.log(jax.random.uniform(k_u, (n_chains,), ftype)) < a)
-
-        def sel(x, y):
-            acc_shape = (n_chains,) + (1,) * (x.ndim - 1)
-            return jnp.where(accept.reshape(acc_shape), y, x)
-
-        new_params = jax.tree_util.tree_map(sel, params_b, prop_b)
-        new_ll = jnp.where(accept, ll_prop, ll_cur)
-        new_st = jax.tree_util.tree_map(sel, s_cur, s_prop)
-        new_acc = acc_b + accept.astype(jnp.int32)
-        carry1 = (new_params, new_ll, new_st, new_acc)
-        return carry1, carry1
-
-    st0 = ()
-    if store_state:
-        # zeros never reach the output: the first proposal is always
-        # accepted (initial ll = -1e30), overwriting the carry
-        shape = jax.eval_shape(lambda k, p: pf_ll_chains(k, p),
-                               key, params0)
-        if not (isinstance(shape, tuple) and len(shape) == 2):
-            raise ValueError(
-                "store_state=True requires an evaluator returning "
-                "(ll, state) -- build it with "
-                "make_pf_loglik_chains(..., store_state=True)")
-        st0 = jax.tree_util.tree_map(
-            lambda s: jnp.zeros(s.shape, s.dtype), shape[1])
-    keys = jax.random.split(key, n_iters)
-    init = (params0, jnp.full((n_chains,), _INIT_LL, ftype), st0,
-            jnp.zeros((n_chains,), jnp.int32))
-    _, (ps, lls, sts, accs) = jax.lax.scan(
-        mh_step, init, (keys, jnp.arange(n_iters)))
-    # stacked [iters, chains, ...] -> [chains, iters, ...] (the vmapped
-    # path's layout)
-    swap = lambda x: jnp.swapaxes(x, 0, 1)
-    return PmmhResult(jax.tree_util.tree_map(swap, ps), swap(lls),
-                      swap(accs),
-                      jax.tree_util.tree_map(swap, sts) if store_state
-                      else None)
 
 
 def adaptive_pmmh(key, init_params: Tree, pf_ll: Callable, n_iters: int, *,
@@ -555,41 +374,24 @@ def adaptive_pmmh(key, init_params: Tree, pf_ll: Callable, n_iters: int, *,
 
 def pilot_run(model: Model, params: Tree, data: TimeSeries, key,
               particle_counts=(100, 200, 500, 1000, 2000), n_reps: int = 100,
-              resample: str = "systematic", fused_sweep: bool = False):
+              resample: str = "systematic"):
     """Variance of the PF log-likelihood estimate at several particle counts.
 
     Used to choose N for PMMH (aim: ll variance around 1).  The reference
     fans repetitions over 4 threads (Streaming.pilotRun, :19-40); here each
     count's repetitions are one ``vmap``.
 
-    Note: each particle count is a distinct static shape, so the filter
-    compiles once *per count* (len(particle_counts) compiles).  That is
-    inherent to fixed-shape XLA programs and is a one-off diagnostic cost;
-    keep ``particle_counts`` short on backends with slow compiles (remote
-    TPU: ~40s+ per shape).
-
-    With ``fused_sweep`` (TPU, exact-transition models), counts <= 1024
-    run all repetitions as one batch of iid chains through the fused
-    sweep kernel (ONE launch instead of a vmapped scan -- the
-    repetitions ARE independent chains; counts > 128 span multiple lane
-    chunks per chain); larger counts keep the vmapped path.
+    Each particle count is a distinct static shape, so the filter
+    compiles once per count: a one-off cost of fixed-shape XLA programs.
 
     Returns a list of ``(n_particles, mean_ll, var_ll)``.
     """
     out = []
     for i, n in enumerate(particle_counts):
         k_n = jax.random.fold_in(key, i)
-        if fused_sweep and int(n) <= 1024:
-            pf_all = make_pf_loglik_chains(model, data, int(n))
-            b = -(-n_reps // 8) * 8
-            params_b = jax.tree_util.tree_map(
-                lambda x: jnp.broadcast_to(jnp.asarray(x)[None],
-                                           (b,) + jnp.shape(x)), params)
-            lls = pf_all(k_n, params_b)[:n_reps]
-        else:
-            pf_ll = make_pf_loglik(model, data, int(n), resample)
-            keys = jax.random.split(k_n, n_reps)
-            lls = jax.jit(jax.vmap(lambda k: pf_ll(k, params)))(keys)
+        pf_ll = make_pf_loglik(model, data, int(n), resample)
+        keys = jax.random.split(k_n, n_reps)
+        lls = jax.jit(jax.vmap(lambda k: pf_ll(k, params)))(keys)
         out.append((int(n), float(jnp.mean(lls)), float(jnp.var(lls))))
     return out
 

@@ -1,9 +1,9 @@
-"""Resampling kernels for the particle filter, TPU-native.
+"""Resampling schemes for the particle filter.
 
 The reference's TreeMap-based empirical CDF + ordered lookup
-(Resampling.scala:36-96) becomes a normalised cumulative sum +
-``searchsorted`` -- O(N log N) with fully vectorised memory access, no
-data-dependent shapes, and identical statistics.
+(Resampling.scala:36-96) becomes a normalised cumulative sum and
+per-particle position counts -- fully vectorised, no data-dependent
+shapes, and identical statistics.
 
 Every scheme has the reference's call convention: inputs are *shifted linear*
 weights ``exp(logw - max(logw))`` (ParticleFilter.scala:124-126), not log
@@ -25,22 +25,8 @@ def _normalise(w):
 
 def _cumsum(w):
     """Prefix sum, the single shared implementation for every resampling
-    path (the Pallas filter path is bit-compared against the XLA path, so
-    both must see identical cdf bits).
-
-    On TPU this is a Pallas MXU kernel (:mod:`..ops.scan_kernel`):
-    XLA's ``associative_scan`` costs ~1.65 ms at N=2^20 f32 on a v5e
-    (its ``cumsum`` lowering another ~14x worse), the blocked matmul
-    prefix ~0.05 ms.  The kernel wins at EVERY size: gating small N to
-    ``associative_scan`` was measured 20% SLOWER end-to-end on the
-    reference-shaped PMMH bench (N=100: 42 vs 53 iters/s) -- the padded
-    one-tile launch still beats the log-depth unaligned-slice lowering.
-    Elsewhere (CPU tests, interpret mode, f64) the ``associative_scan``.
-    """
-    if (jax.default_backend() == "tpu" and w.ndim == 1
-            and w.dtype == jnp.float32):
-        from ..ops.scan_kernel import prefix_sum
-        return prefix_sum(w)
+    path (the sharded resampler's window counts must see the same cdf
+    bits as the single-device schemes)."""
     return jax.lax.associative_scan(jnp.add, w)
 
 
@@ -49,35 +35,13 @@ def _monotone_counts(counts):
 
     The f32 cdf from a tree-structured prefix sum can *dip by a ulp*
     between adjacent entries (different rounding groupings), so
-    ``ceil(n*cdf - u)`` occasionally decreases by 1 -- observed on a real
-    v5e at N=2^17 with heavy-tailed weights.  Downstream consumers
-    (ancestor construction, the Pallas merge kernel's block spans, the
-    distributed resampler's windows) all assume nondecreasing counts, so
-    every count-based scheme monotonises here.  int32 max is exact, so this
-    is the true sequential cummax on every backend.
+    ``ceil(n*cdf - u)`` occasionally decreases by 1 (seen with
+    heavy-tailed weights at N=2^17).  Downstream consumers (ancestor
+    construction, the distributed resampler's windows) assume
+    nondecreasing counts, so every count-based scheme monotonises here.
+    int32 max is exact, so this is the true sequential cummax.
     """
-    if (jax.default_backend() == "tpu" and counts.ndim == 1
-            and counts.dtype == jnp.int32):
-        from ..ops.scan_kernel import cummax_int32
-        return cummax_int32(counts)
     return jax.lax.associative_scan(jnp.maximum, counts)
-
-
-def _monotone_cdf(cdf):
-    """Exact running max of a NONNEGATIVE f32 cdf.
-
-    Needed where an algorithm requires the cdf itself to be sorted (the
-    merged-rank multinomial counts) rather than post-monotonising derived
-    integer counts.  On TPU this reuses the int32 cummax kernel through an
-    order-preserving bitcast: nonnegative IEEE f32 bit patterns order as
-    int32, and int32 max is exact.
-    """
-    if (jax.default_backend() == "tpu" and cdf.ndim == 1
-            and cdf.dtype == jnp.float32):
-        from ..ops.scan_kernel import cummax_int32
-        bits = jax.lax.bitcast_convert_type(cdf, jnp.int32)
-        return jax.lax.bitcast_convert_type(cummax_int32(bits), jnp.float32)
-    return jax.lax.associative_scan(jnp.maximum, cdf)
 
 
 def _lookup(cdf, positions):
@@ -97,10 +61,9 @@ def _ancestors_from_counts(counts, n_out: int):
     slot ``counts[i-1]`` for every particle with offspring and forward-filling
     with a running max.
 
-    This replaces ``searchsorted`` (a 20-round binary search with gather-heavy
-    memory traffic -- measured ~130 ms at N=1e6 on a TPU v5e chip) with one
-    scatter + one associative scan (~2 ms): the difference between the
-    resampling step dominating the filter and it being noise.
+    This replaces a per-slot ``searchsorted`` (a 20-round binary search
+    of dependent gathers at N=2^20) with one scatter + one associative
+    scan.
     """
     m = counts.shape[0]
     offspring = jnp.diff(counts, prepend=jnp.zeros((1,), counts.dtype))
@@ -117,23 +80,11 @@ def systematic_counts(key, weights, n: int | None = None):
     Positions are affine in the slot index, so the position count below
     each cdf entry is closed-form: ``counts[i] = clip(ceil(n*cdf[i] - u),
     0, n)`` -- no search at all.  Reference semantics:
-    Resampling.scala:63-72.  The SINGLE producer for both the XLA
-    (``systematic_indices``) and Pallas merge-kernel paths, which are
-    bit-compared against each other.
+    Resampling.scala:63-72.
     """
     m = weights.shape[0]
     n = m if n is None else n
     u = jax.random.uniform(key, (), weights.dtype)
-    if (jax.default_backend() == "tpu" and weights.ndim == 1
-            and weights.dtype == jnp.float32):
-        # one fused Pallas pass (normalise + MXU prefix + ceil/clip +
-        # last-element guard + int cummax): bit-identical to the op-by-op
-        # composition below but one HBM read + one write instead of ~9
-        # intermediate 4 MB round-trips at N=2^20 (~0.04 ms/step of the
-        # filter); tests compare the two in interpret mode.
-        from ..ops.scan_kernel import systematic_counts_fused
-        return systematic_counts_fused(weights, jnp.sum(weights), u,
-                                       n_out=n)
     cdf = _cumsum(_normalise(weights))
     counts = jnp.clip(jnp.ceil(n * cdf - u), 0, n).astype(jnp.int32)
     counts = counts.at[-1].set(n)  # guard against cdf[-1] < 1 rounding
@@ -174,77 +125,21 @@ def stratified_indices(key, weights, n: int | None = None):
     return _ancestors_from_counts(stratified_counts(key, weights, n), n)
 
 
-def multinomial_counts(key, weights, n: int | None = None):
-    """Monotone cumulative position counts for multinomial resampling.
-
-    Multinomial positions are n iid uniforms -- unordered, so no closed
-    form like systematic/stratified.  Instead of a per-position binary
-    search over the cdf (20 rounds of random gathers, ~130 ms at N=1e6 on
-    a v5e), ONE stable argsort of the merged ``[positions, cdf]`` array
-    yields every count: with positions occupying the first n merged slots,
-    the merged rank of ``cdf[i]`` is ``#(positions <= cdf[i]) + i`` (stable
-    sort breaks position/cdf ties position-first, matching the
-    ``side='left'`` lookup; equal cdf entries contribute their index
-    offset exactly because cdf is sorted), hence
-    ``counts[i] = rank(cdf[i]) - i``.
-
-    Same multiset of ancestors as ``_lookup``-based multinomial
-    (Resampling.scala:92-96) for the same key, produced in sorted order.
-
-    The rank identity requires the cdf itself to be sorted, so the f32
-    prefix's ulp dips are corrected on the cdf (``_monotone_cdf``) BEFORE
-    the merge -- a dip would otherwise inflate a neighbouring rank and
-    misassign a boundary draw (post-monotonising the counts cannot fix
-    that: the bad count is too high, not too low).
-    """
-    m = weights.shape[0]
-    n = m if n is None else n
-    cdf = _monotone_cdf(_cumsum(_normalise(weights)))
-    u = jax.random.uniform(key, (n,), weights.dtype)
-    merged = jnp.concatenate([u, cdf])
-    order = jnp.argsort(merged, stable=True)
-    rank = jnp.zeros((n + m,), jnp.int32).at[order].set(
-        jnp.arange(n + m, dtype=jnp.int32))
-    counts = rank[n:] - jnp.arange(m, dtype=jnp.int32)
-    counts = jnp.clip(counts, 0, n).at[-1].set(n)  # cdf[-1] < 1 rounding
-    return _monotone_counts(counts)
-
-
 def multinomial_indices(key, weights, n: int | None = None):
-    """Multinomial resampling: n iid draws from the weight distribution.
+    """Multinomial resampling: n iid draws from the weight distribution,
+    one ``searchsorted`` lookup per position.  Reference:
+    Resampling.scala:92-96.
 
-    Reference: Resampling.scala:92-96.  On TPU the ancestors are built
-    from :func:`multinomial_counts` (one argsort instead of a
-    ``searchsorted`` binary search -- the search costs ~130 ms at N=1e6 on
-    a v5e, the argsort path a few ms) and are therefore returned *sorted*;
-    the multiset of ancestors is identical for the same key, and particle
-    order is statistically irrelevant to every consumer (ancestors are
-    exchangeable).  Off-TPU keeps the per-position lookup order.
+    A search-free alternative (one stable argsort of the merged
+    ``[positions, cdf]`` array yields every count) gives the same
+    multiset; it measured slower on the GPU at N=2^20 and serves as the
+    test oracle (tests/test_resampling.py).
     """
     m = weights.shape[0]
     n = m if n is None else n
-    if jax.default_backend() == "tpu":
-        return _ancestors_from_counts(multinomial_counts(key, weights, n), n)
     cdf = _cumsum(_normalise(weights))
     positions = jax.random.uniform(key, (n,), weights.dtype)
     return _lookup(cdf, positions)
-
-
-def _iid_draws_sorted_permuted(key, weights, n: int):
-    """n iid draws from ``weights``, built search-free.
-
-    :func:`multinomial_counts` (one merged-rank argsort) yields the draw
-    multiset in SORTED ancestor order; a uniformly random permutation of
-    the n slots restores exchangeability, so the result is distributed
-    exactly as n iid lookups -- and in particular any fixed-size PREFIX of
-    it is an iid sample (a random permutation of iid draws is the same
-    random vector; a sorted prefix would instead be biased toward low
-    order statistics).  This is the TPU residual fill: ``searchsorted``
-    costs ~130 ms at N=1e6 on a v5e, the two argsorts a few ms.
-    """
-    k_mult, k_perm = jax.random.split(key)
-    anc = _ancestors_from_counts(multinomial_counts(k_mult, weights, n), n)
-    return anc[jax.random.permutation(k_perm, n)]
 
 
 def residual_indices(key, weights, n: int | None = None):
@@ -254,14 +149,8 @@ def residual_indices(key, weights, n: int | None = None):
     remaining slots multinomially from the residual weights
     (Resampling.scala:130-146).  The dynamic deterministic count K becomes a
     fixed-shape ``repeat(..., total_repeat_length=n)`` plus a positional mask:
-    slots < K take deterministic copies, slots >= K take multinomial draws.
-
-    The residual fill needs per-slot iid draws (the mask takes a
-    K-dependent prefix of them): on TPU these come from the sorted
-    counts-based multinomial under a random slot permutation
-    (:func:`_iid_draws_sorted_permuted` -- search-free, exchangeable, so
-    the prefix is unbiased); elsewhere the per-position ``searchsorted``
-    lookup (cheap on CPU, ~130 ms at N=1e6 on a v5e).
+    slots < K take deterministic copies, slots >= K take iid multinomial
+    draws (:func:`multinomial_indices`, whose any prefix is iid).
     """
     m = weights.shape[0]
     n = m if n is None else n
@@ -276,12 +165,7 @@ def residual_indices(key, weights, n: int | None = None):
     # guard: if residual mass is exactly zero (all weights uniform), fall back
     # to uniform residual distribution -- those slots are masked out anyway
     safe = jnp.where(jnp.sum(residual) > 0, residual, jnp.ones_like(residual))
-    if jax.default_backend() == "tpu":
-        multi = _iid_draws_sorted_permuted(key, safe, n)
-    else:
-        cdf = _cumsum(_normalise(safe))
-        positions = jax.random.uniform(key, (n,), weights.dtype)
-        multi = _lookup(cdf, positions)
+    multi = multinomial_indices(key, safe, n)
 
     slot = jnp.arange(n)
     return jnp.where(slot < k_total, det, multi)

@@ -1,4 +1,4 @@
-"""Composable state-space models: the semigroup composition operator, TPU-first.
+"""Composable state-space models: the semigroup composition operator.
 
 The reference composes models at runtime with a binary operator ``|+|`` over
 closures and state trees (Model.scala:96-136).  Here composition is *static
@@ -11,7 +11,7 @@ trace-time metadata*:
   to one fused kernel (see :mod:`.sde`);
 * the composed linear transform ``f(x, t)`` is a dot product with a
   time-dependent **design vector** ``F(t) [d_total]`` -- for a particle block
-  it is ``particles @ F(t)``, a single MXU/VPU-friendly contraction, instead
+  it is ``particles @ F(t)``, a single contraction, instead
   of the reference's per-particle tree folds (Model.scala:122-128);
 * composition is left-biased exactly as the reference: the *leftmost* leaf
   supplies the observation distribution, link and data-likelihood
@@ -37,6 +37,8 @@ from .params import ParamNode
 from .sde import CompositeSde, Sde, compose_sde
 from .tree import Branch, Leaf, Tree
 
+# the weight contraction's precision (see Model.f)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # ---------------------------------------------------------------------------
 # Linear transforms f (the time-dependent design vector)
@@ -173,7 +175,7 @@ class Model:
     def step(self, params: Tree, key, x, dt):
         return self.sde.step(self.sde_params(params), key, x, dt)
 
-    # -- transposed [dim, N] layout (particle axis on TPU lanes) -------------
+    # -- transposed [dim, N] layout (particle axis last) ----------------------
 
     def initial_state_t(self, params: Tree, key, n: int):
         return self.sde.initial_state_t(self.sde_params(params), key, n)
@@ -183,7 +185,7 @@ class Model:
 
     def f_t(self, x_t, t):
         """gamma [N] from a transposed [dim, N] particle block."""
-        return self.design_vector(t) @ x_t
+        return jnp.matmul(self.design_vector(t), x_t, precision=_HIGHEST)
 
     # -- linear transform f ----------------------------------------------------------
 
@@ -196,9 +198,12 @@ class Model:
         """gamma = f(x, t): one contraction over the flat state.
 
         Reference semantics: sum of componentwise f over the state tree
-        (Model.scala:122-128).
+        (Model.scala:122-128).  The contraction is pinned to full float32
+        precision: a GPU may otherwise run it in TF32 (about three decimal
+        digits), which would shift every particle's weight.  It is a
+        d-wide matvec, bound by memory, so the pin costs nothing.
         """
-        return x @ self.design_vector(t)
+        return jnp.matmul(x, self.design_vector(t), precision=_HIGHEST)
 
     def component_f(self, x, t, position: int):
         """Transformed state of the ``position``-th component alone.
@@ -207,7 +212,9 @@ class Model:
         """
         comps = self.components()
         off, d = self.slices()[position]
-        return x[..., off:off + d] @ comps[position].ftype.design(d, t)
+        return jnp.matmul(x[..., off:off + d],
+                          comps[position].ftype.design(d, t),
+                          precision=_HIGHEST)
 
     def decompose(self, x, t):
         """Per-component gamma contributions, [..., n_components]."""

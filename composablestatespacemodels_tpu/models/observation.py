@@ -11,7 +11,7 @@ vectorised JAX functions.  Each family provides
   for the zero-inflation probability).
 
 All functions broadcast over arbitrary leading axes: the particle filter
-evaluates ``log_density`` on ``[N]`` particle blocks in one fused VPU pass.
+evaluates ``log_density`` on ``[N]`` particle blocks in one fused pass.
 Scales arrive *unconstrained* exactly as the reference stores them
 (Model.scala:146-147 et al. exp the stored value).
 """
@@ -51,19 +51,6 @@ class ObservationFamily:
     def sample(self, key, gamma, scale):
         raise NotImplementedError
 
-    def kernel_log_density(self):
-        """Optional TPU-kernel weight hook for the fused filter path.
-
-        Returns ``(make_consts, fn)`` or None.  ``make_consts(y, scale)``
-        runs OUTSIDE the kernel (any jnp ops; y/scale are traced scalars)
-        and returns a [k] f32 array of per-step constants;
-        ``fn(gamma, consts_ref)`` runs INSIDE the Pallas kernel on the
-        [1, B] gamma row and may use only Mosaic-lowerable elementwise ops
-        plus scalar reads of ``consts_ref``.  Must compute exactly
-        :meth:`log_density`.
-        """
-        return None
-
 
 @dataclasses.dataclass(frozen=True)
 class Gaussian(ObservationFamily):
@@ -76,18 +63,6 @@ class Gaussian(ObservationFamily):
 
     def sample(self, key, gamma, scale):
         return gamma + scale * jax.random.normal(key, jnp.shape(gamma))
-
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            return jnp.stack([y, 1.0 / scale,
-                              -_HALF_LOG_2PI - jnp.log(scale)]
-                             ).astype(jnp.float32)
-
-        def fn(gamma, c):
-            z = (c[0] - gamma) * c[1]
-            return c[2] - 0.5 * z * z
-
-        return make_consts, fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,17 +81,6 @@ class Poisson(ObservationFamily):
     def sample(self, key, gamma, scale):
         return jax.random.poisson(key, self.link(gamma)).astype(
             jnp.result_type(float))
-
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            # gammaln runs outside (scalar; Mosaic's lgamma support is
-            # not relied upon in-kernel)
-            return jnp.stack([y, gammaln(y + 1.0)]).astype(jnp.float32)
-
-        def fn(gamma, c):
-            return c[0] * gamma - jnp.exp(gamma) - c[1]
-
-        return make_consts, fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,21 +110,6 @@ class ZeroInflatedPoisson(ObservationFamily):
             jnp.result_type(float))
         return jnp.where(u < scale, 0.0, pois)
 
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            return jnp.stack([y, jnp.log(scale), jnp.log1p(-scale),
-                              gammaln(y + 1.0),
-                              (y == 0).astype(jnp.float32)]
-                             ).astype(jnp.float32)
-
-        def fn(gamma, c):
-            lam = jnp.exp(gamma)
-            ll_zero = jnp.logaddexp(c[1], c[2] - lam)
-            ll_pos = c[2] + c[0] * gamma - lam - c[3]
-            return jnp.where(c[4] > 0.5, ll_zero, ll_pos)
-
-        return make_consts, fn
-
 
 @dataclasses.dataclass(frozen=True)
 class NegativeBinomial(ObservationFamily):
@@ -186,21 +135,6 @@ class NegativeBinomial(ObservationFamily):
         lam = jax.random.gamma(kg, size, jnp.shape(gamma)) * (mu / size)
         return jax.random.poisson(kp, lam).astype(jnp.result_type(float))
 
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            size = scale
-            return jnp.stack([
-                gammaln(size + y) - gammaln(y + 1.0) - gammaln(size),
-                y, size, jnp.log(size)]).astype(jnp.float32)
-
-        def fn(gamma, c):
-            # log(mu + size) = logaddexp(gamma, log size), so
-            # logw = const + size*(log size - lse) + y*(gamma - lse)
-            lse = jnp.logaddexp(gamma, c[3])
-            return c[0] + c[2] * (c[3] - lse) + c[1] * (gamma - lse)
-
-        return make_consts, fn
-
 
 @dataclasses.dataclass(frozen=True)
 class Bernoulli(ObservationFamily):
@@ -223,20 +157,6 @@ class Bernoulli(ObservationFamily):
     def sample(self, key, gamma, scale):
         u = jax.random.uniform(key, jnp.shape(gamma))
         return jnp.where(u < self.link(gamma), 1.0, 0.0)
-
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            return jnp.stack([y]).astype(jnp.float32)
-
-        def fn(gamma, c):
-            p = self.link(gamma)
-            ll1 = jnp.where(p == 0.0, _NEG_INF_LL,
-                            jnp.log(jnp.maximum(p, 1e-300)))
-            ll0 = jnp.where(p == 1.0, _NEG_INF_LL,
-                            jnp.log(jnp.maximum(1.0 - p, 1e-300)))
-            return jnp.where(c[0] == 1.0, ll1, ll0)
-
-        return make_consts, fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,42 +183,6 @@ class StudentsT(ObservationFamily):
         t = jax.random.t(key, float(self.df), jnp.shape(gamma))
         return gamma + scale * t
 
-    def kernel_log_density(self):
-        nu = float(self.df)
-
-        def make_consts(y, scale):
-            lognorm = (gammaln((nu + 1.0) / 2.0) - gammaln(nu / 2.0)
-                       - 0.5 * jnp.log(nu * jnp.pi))
-            return jnp.stack([y, 1.0 / scale, lognorm - jnp.log(scale)]
-                             ).astype(jnp.float32)
-
-        def fn(gamma, c):
-            z = (c[0] - gamma) * c[1]
-            return c[2] - (nu + 1.0) / 2.0 * jnp.log1p(z * z / nu)
-
-        return make_consts, fn
-
-
-def _lgamma_f32(x):
-    """Mosaic-lowerable ``gammaln`` for x > 0 (elementwise mul/log/select
-    only -- no in-kernel ``lgamma`` intrinsic is relied upon).
-
-    Stirling's series at z >= 8 (three correction terms: the next term,
-    -1/(1680 z^7), is ~3e-10 at z = 8, far below the f32 ulp of
-    lgamma(8)); smaller arguments shift up through the recurrence
-    ``lgamma(x) = lgamma(x+8) - log(x (x+1) ... (x+7))`` (the product
-    stays < 2.7e9, within f32; for x >= 8 it can overflow to inf but is
-    select-masked).  Relative error ~f32 ulps across (0, inf)."""
-    z = jnp.where(x >= 8.0, x, x + 8.0)
-    prod = x
-    for i in range(1, 8):
-        prod = prod * (x + float(i))
-    corr = jnp.where(x >= 8.0, 0.0, jnp.log(prod))
-    zi = 1.0 / z
-    zi2 = zi * zi
-    series = zi * (1.0 / 12.0 + zi2 * (-1.0 / 360.0 + zi2 * (1.0 / 1260.0)))
-    return (z - 0.5) * jnp.log(z) - z + _HALF_LOG_2PI + series - corr
-
 
 @dataclasses.dataclass(frozen=True)
 class Beta(ObservationFamily):
@@ -323,24 +207,6 @@ class Beta(ObservationFamily):
         a = self.link(gamma)
         b = jnp.broadcast_to(scale, jnp.shape(a))
         return jax.random.beta(key, a, b)
-
-    def kernel_log_density(self):
-        def make_consts(y, scale):
-            # gammaln(b), log y, log1p(-y) are per-step scalars computed
-            # outside; only the particle-dependent gammaln(a) and
-            # gammaln(a + b) need the in-kernel Stirling approx
-            b = scale
-            return jnp.stack([
-                jnp.log(y),
-                (b - 1.0) * jnp.log1p(-y) - gammaln(b),
-                b]).astype(jnp.float32)
-
-        def fn(gamma, c):
-            a = jnp.exp(-gamma)
-            return ((a - 1.0) * c[0] + c[1]
-                    + _lgamma_f32(a + c[2]) - _lgamma_f32(a))
-
-        return make_consts, fn
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,11 @@
-"""Continuous-time latent processes (SDEs), TPU-native.
+"""Continuous-time latent processes (SDEs).
 
 The three reference SDE families (Sde.scala:69-163) with exact Gaussian
 transition kernels plus a generic Euler-Maruyama fallback (Sde.scala:36-43),
 and blockwise composition (the reference ``Semigroup[Sde]``,
 Sde.scala:204-240).
 
-TPU-first design notes:
+Design notes:
 
 * the latent state is a flat ``[..., dim]`` array; composition is *static*
   metadata (each component owns a contiguous slice), so composed transitions
@@ -83,14 +83,13 @@ class Sde:
         z = jax.random.normal(key, jnp.shape(x), jnp.result_type(x))
         return x + self.drift(p, x) * dtb + self.diffusion(p, x) * jnp.sqrt(dtb) * z
 
-    # -- transposed [dim, N] layout (TPU-native particle axis on lanes) ------
+    # -- transposed [dim, N] layout (particle axis last) ----------------------
 
     def step_t(self, p, key, x_t, dt):
         """Exact transition on a transposed ``[dim, N]`` particle block.
 
-        The particle axis rides the 128-wide lane dimension -- the layout
-        the Pallas resampling kernel consumes, so the whole filter scan can
-        stay transposed with zero per-step relayouts.
+        The particle axis is the minor (last) axis, so a filter scan in
+        this layout needs no per-step relayouts.
         """
         raise NotImplementedError(
             f"{type(self).__name__} has no transposed step")

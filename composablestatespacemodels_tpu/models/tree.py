@@ -1,7 +1,7 @@
 """Binary composition tree, registered as a JAX pytree.
 
 The reference library composes models, latent states and parameters as binary
-trees (reference: Tree.scala:12-108).  In this TPU-native rebuild the *runtime*
+trees (reference: Tree.scala:12-108).  In this JAX rebuild the *runtime*
 latent state is a flat ``[d_total]`` array (static composition metadata gives
 each component a slice), but *parameters* keep the user-facing binary-tree
 shape so that composed models are parameterised exactly like the reference:

@@ -2,7 +2,7 @@
 //
 // The reference streams observation files through Akka's JVM IO stages
 // (Data.scala:252-272, Framing.delimiter + per-line parsing).  This is the
-// equivalent native runtime component for the TPU framework: a single-pass
+// equivalent native runtime component for this framework: a single-pass
 // C++ parser (one read(2) burst, zero per-line allocation) exposed through
 // a C ABI and bound with ctypes -- feeding the host-side of the filter
 // pipeline without Python string overhead.

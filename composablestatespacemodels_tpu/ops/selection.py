@@ -2,7 +2,8 @@
 
 Selecting a handful of order statistics (credible-interval bounds) from a
 large particle cloud via ``jnp.sort`` costs a full [d, N] sort per filter
-step -- at N=2^20 that dwarfs the ~2 ms step itself.  Selection by
+step -- on an H100 at N=2^20, d=7 the sorts take 14.7 ms against a
+1.2 ms filter step (PERF.md).  Selection by
 bisection over the 32-bit sortable integer encoding of float32 needs only
 32 rounds of counting compares (each one fused read of the data), returns
 values bit-identical to ``sort(column)[k]``, and -- because each round
@@ -10,9 +11,8 @@ reduces to a few counters -- works unchanged on a sharded cloud where each
 round's counts are combined with one ``psum`` (no gather, no sort).
 
 No reference analog (the reference sorts per step,
-ParticleFilter.scala:415-424, 488-502); TPU-native infrastructure shared
-by the single-device transposed filter and the sharded filter's summary
-path.
+ParticleFilter.scala:415-424, 488-502); shared by the sharded filter's
+summary path, the sharded LGCP filter and the interpolation replay.
 """
 
 from __future__ import annotations

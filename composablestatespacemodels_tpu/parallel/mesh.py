@@ -1,11 +1,11 @@
 """Device-mesh helpers.
 
 The reference has no distributed backend (SURVEY.md section 2.3); scaling here
-is green-field TPU design: a (chains x particles) mesh where
+is green-field design: a (chains x particles) mesh where
 
 * the **particle axis** shards the N-wide state cloud (the scalable width
   dimension -- the "sequence-parallel"-shaped axis of this domain), with
-  ICI collectives for weight normalisation / ESS / log-likelihood and
+  collectives for weight normalisation / ESS / log-likelihood and
   resampling;
 * the **chain axis** is data-parallelism over independent PMMH chains.
 """

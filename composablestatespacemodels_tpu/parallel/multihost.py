@@ -1,20 +1,20 @@
-"""Multi-host (DCN) runtime helpers.
+"""Multi-host runtime helpers.
 
 The reference is a single-JVM library with no distributed backend
 (SURVEY.md section 2.3); this module is the green-field multi-host tier of
-the TPU design.  The layout rule follows the mesh axes' communication
+the design.  The layout rule follows the mesh axes' communication
 profiles:
 
 * the **particle axis** carries per-step collectives (``pmax``/``psum`` of
   weight scalars and the resampling ``ppermute`` ring,
-  :mod:`.sharded_filter`), so it must ride ICI -- keep it *within* a host's
-  chips;
+  :mod:`.sharded_filter`), so it must ride the fast in-host interconnect
+  -- keep it *within* a host's devices;
 * the **chain axis** synchronises nothing inside the filter scan
-  (independent PMMH chains), so it is the axis that can safely span hosts
-  over DCN.
+  (independent PMMH chains), so it is the axis that can safely span
+  hosts.
 
 :func:`hybrid_mesh` encodes exactly that: chains over the process
-(DCN) dimension, particles over the per-host (ICI) dimension.
+dimension, particles over each host's own devices.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
     ``JAX_PROCESS_ID``).  With ``auto=True`` the call is forwarded to
     ``jax.distributed.initialize()`` with whatever arguments were supplied,
-    letting JAX's cluster auto-detection (TPU pods, SLURM, ...) fill in the
+    letting JAX's cluster auto-detection (SLURM, ...) fill in the
     rest.  Without ``auto``, a job with no coordinator configured and
     ``num_processes`` in {None, 1} is a no-op returning False.
 
@@ -87,10 +87,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 def hybrid_mesh(n_chains: Optional[int] = None,
                 devices=None) -> Mesh:
-    """(chains, particles) mesh that keeps the particle axis on ICI.
+    """(chains, particles) mesh that keeps the particle axis within a host.
 
-    The chain axis spans processes (DCN); the particle axis spans each
-    process's local chips (ICI).  Defaults to one chain row per host.
+    The chain axis spans processes; the particle axis spans each
+    process's local devices.  Defaults to one chain row per host.
     Single-process jobs degrade to :func:`~.mesh.make_mesh` semantics over
     the local devices.
 

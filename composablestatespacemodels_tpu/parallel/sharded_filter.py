@@ -1,9 +1,9 @@
-"""Particle-sharded bootstrap filter over a TPU mesh (``shard_map`` + ICI).
+"""Particle-sharded bootstrap filter over a device mesh (``shard_map``).
 
 Per time step the only global synchronisation is:
 
 * ``pmax`` of the local weight maxima and ``psum`` of the weight sums
-  (the log-sum-exp update and ESS -- a handful of scalars over ICI);
+  (the log-sum-exp update and ESS -- a handful of scalars);
 * at resample steps, a **distributed systematic resampler**
   (:func:`distributed_systematic_resample`): an exclusive scan of per-shard
   weight sums (n_shards scalars) gives every shard its global count window
@@ -11,7 +11,7 @@ Per time step the only global synchronisation is:
   ``ppermute`` ring -- the loop exits as soon as every shard has its
   ancestors (one hop in the common near-uniform-weights case).  No shard
   ever materialises the global ``[N, d]`` cloud, so multi-chip N is bounded
-  by *aggregate* HBM, not single-chip memory, and per-step ICI traffic is
+  by *aggregate* device memory, not one device's, and per-step traffic is
   O(local_n * d * hops_needed) instead of O(N * d).
 
 The global resampling positions use a *shared* uniform (same key on every
@@ -155,15 +155,6 @@ def _ring_exchange_fill(fill, x_block, counts, c_prev, local_n, axis,
     return out
 
 
-def auto_transposed(local_n: int, resample_comm: str = "distributed") -> bool:
-    """Single source of truth for when the transposed [d, local_n] fast
-    path (Pallas local fills) applies: TPU backend, kernel-tile-divisible
-    shard size, distributed resampling."""
-    return (jax.default_backend() == "tpu"
-            and resample_comm == "distributed"
-            and local_n % 1024 == 0)
-
-
 def _systematic_window_counts(w_local, key, axis: str):
     """Shared window machinery of the distributed systematic resampler.
 
@@ -201,16 +192,11 @@ def _systematic_window_counts(w_local, key, axis: str):
 
 
 def distributed_systematic_resample_t(x_t_local, w_local, key, axis: str,
-                                      sync_axes=None, pallas_fill=None):
+                                      sync_axes=None):
     """Transposed-layout distributed systematic resampling.
 
     Same window/ring mechanics as :func:`distributed_systematic_resample`
-    but particle blocks travel as ``[d, local_n]`` columns and the local
-    fill runs through the Pallas merge-gather kernel
-    (:func:`..ops.resample_kernel.sorted_gather_resample_t`) instead of an
-    XLA ``searchsorted`` + row gather -- the on-chip fast path for
-    multi-chip filters (``searchsorted`` costs ~130 ms at local_n=1e6 on a
-    v5e; the kernel ~2 ms).
+    but particle blocks travel as ``[d, local_n]`` columns.
 
     Args:
       x_t_local: [d, local_n] this shard's particle columns.
@@ -219,74 +205,35 @@ def distributed_systematic_resample_t(x_t_local, w_local, key, axis: str,
       axis: particle mesh axis.
       sync_axes: all mesh axes of the enclosing shard_map (see
         :func:`distributed_systematic_resample`).
-      pallas_fill: force (True) or disable (False) the kernel fill;
-        default auto (TPU backend and 1024-divisible local_n).
     """
     idx = jax.lax.axis_index(axis)
-    d, local_n = x_t_local.shape
-    if pallas_fill is None:
-        pallas_fill = (jax.default_backend() == "tpu"
-                       and local_n % 1024 == 0)
+    local_n = x_t_local.shape[1]
 
     if jax.lax.axis_size(axis) == 1:
         # 1-wide axis: bit-identical local systematic sample, no ring
         # (same window-count producer as the general path; see
         # distributed_systematic_resample)
-        from ..inference.filter import _kernel_block
         from ..inference.resampling import _ancestors_from_counts
         counts1, _ = _systematic_window_counts(w_local, key, axis)
-        if pallas_fill:
-            from ..ops.resample_kernel import sorted_gather_resample_t
-            d_pad1 = (-d) % 8
-            xp = x_t_local
-            if d_pad1:
-                xp = jnp.concatenate(
-                    [xp, jnp.zeros((d_pad1, local_n), xp.dtype)], axis=0)
-            return sorted_gather_resample_t(
-                xp, counts1, block=_kernel_block(local_n))[:d]
         return x_t_local[:, _ancestors_from_counts(counts1, local_n)]
 
     counts, c_prev = _systematic_window_counts(w_local, key, axis)
     slots = idx * local_n + jnp.arange(local_n)                  # my outputs
 
-    d_pad = (-d) % 8
-    if d_pad and pallas_fill:
-        x_t_local = jnp.concatenate(
-            [x_t_local, jnp.zeros((d_pad, local_n), x_t_local.dtype)], axis=0)
+    def fill(out, filled, xb_t, cb, cp):
+        i = jnp.searchsorted(cb, slots, side="right")
+        valid = (slots >= cp) & (slots < cb[-1])
+        cand = xb_t[:, jnp.clip(i, 0, local_n - 1)]
+        out = jnp.where((valid & ~filled)[None, :], cand, out)
+        return out, filled | valid
 
-    if pallas_fill:
-        from ..ops.resample_kernel import sorted_gather_resample_t
-        from ..inference.filter import _kernel_block
-        kblock = _kernel_block(local_n)
-
-        def fill(out, filled, xb_t, cb, cp):
-            # shift the visiting block's global counts into this shard's
-            # local slot frame; clipping keeps the <=q counting exact for
-            # local slots, and the forced closing count only fabricates
-            # ancestors for slots outside the (masked) valid window
-            cb_loc = jnp.clip(cb - idx * local_n, 0, local_n)
-            cb_loc = cb_loc.at[-1].set(local_n)
-            cand = sorted_gather_resample_t(xb_t, cb_loc, block=kblock)
-            valid = (slots >= cp) & (slots < cb[-1])
-            take = valid & ~filled
-            out = jnp.where(take[None, :], cand, out)
-            return out, filled | valid
-    else:
-        def fill(out, filled, xb_t, cb, cp):
-            i = jnp.searchsorted(cb, slots, side="right")
-            valid = (slots >= cp) & (slots < cb[-1])
-            cand = xb_t[:, jnp.clip(i, 0, local_n - 1)]
-            out = jnp.where((valid & ~filled)[None, :], cand, out)
-            return out, filled | valid
-
-    out = _ring_exchange_fill(fill, x_t_local, counts, c_prev, local_n,
-                              axis, sync_axes)
-    return out[:d]
+    return _ring_exchange_fill(fill, x_t_local, counts, c_prev, local_n,
+                               axis, sync_axes)
 
 
 def _all_gather_systematic_resample(x_local, w_local, key, axis: str):
     """Round-1 baseline: gather weights + particles, slice the global
-    sample.  Kept for cross-checking the distributed path; O(N*d) ICI
+    sample.  Kept for cross-checking the distributed path; O(N*d)
     traffic and O(N) per-chip memory per step."""
     from ..inference.resampling import (_ancestors_from_counts, _cumsum,
                                         _monotone_counts)
@@ -316,7 +263,7 @@ def _all_gather_systematic_resample(x_local, w_local, key, axis: str):
 def _kth_smallest_sharded(vals, ks, axis: str):
     """Exact k-th smallest of a sharded float32 array, per column: the
     shared bisection selector (:func:`..ops.selection.kth_smallest_bits`)
-    with each round's counts psummed over ``axis`` -- 32 small ICI
+    with each round's counts psummed over ``axis`` -- 32 small
     reductions, no gather, no sort."""
     from ..ops.selection import kth_smallest_bits
 
@@ -439,8 +386,7 @@ def _sharded_scan(model: Model, params: Tree, data: TimeSeries,
     n_shards = jax.lax.axis_size(axis)
     n_total = local_n * n_shards
     # n_shards is trace-time static: on a 1-wide particle axis the scalar
-    # collectives are identities -- skip them (measured, they are most of
-    # the remaining 1-shard machinery overhead)
+    # collectives are identities -- skip them
     pmax_ = (lambda v: v) if n_shards == 1 else (
         lambda v: jax.lax.pmax(v, axis))
     psum_ = (lambda v: v) if n_shards == 1 else (
@@ -570,8 +516,7 @@ def _make_save_fn_sharded_t(model: Model, store, interval: float,
     if callable(store):
         # preserve the documented (t, particles [local_n, d], key) contract
         # across flat/transposed paths (the transposed scan holds [d, local_n]
-        # columns; transposed auto-enables on TPU, so a callable must not see
-        # a backend-dependent layout)
+        # columns; a callable must not see a layout-dependent shape)
         return lambda t, x_t, wn, k: store(t, x_t.T, k)
     raise ValueError(f"unknown store mode {store!r}")
 
@@ -581,26 +526,12 @@ def _sharded_scan_t(model: Model, params: Tree, data: TimeSeries,
                     x_init=None, t0=None, store="ll",
                     ess_threshold: Optional[float] = None,
                     interval: float = 0.975,
-                    sync_axes=None, pallas_fill=None,
-                    fused_propagate: bool = False):
-    """Transposed-layout sharded filter body (the TPU fast path).
+                    sync_axes=None):
+    """Transposed-layout sharded filter body.
 
-    Particles live as [d, local_n] columns for the whole scan (the particle
-    axis on TPU lanes, as the single-device ``_filter_impl_t``), and
-    resampling uses :func:`distributed_systematic_resample_t` whose local
-    fill is the Pallas merge-gather kernel.  Semantics identical to
-    :func:`_sharded_scan`.
-
-    With ``fused_propagate`` (``resample='systematic-pallas-fused'`` under
-    ``mesh=``), the per-step propagation runs through
-    :func:`..ops.resample_kernel.propagate_weights_t` -- the exact
-    diagonal affine-Gaussian transition with in-kernel Box-Muller noise
-    and, when the observation family provides ``kernel_log_density``, the
-    local log-weights fused into a padding row (the scalar weight
-    collectives across shards are unchanged).  Statistically (not
-    bitwise) equivalent to the XLA propagate it replaces; the ring fill
-    cannot absorb the propagate itself because each shard's output is
-    assembled across several kernel launches.
+    Particles live as [d, local_n] columns for the whole scan, and
+    resampling uses :func:`distributed_systematic_resample_t`.  Semantics
+    identical to :func:`_sharded_scan`.
     """
     idx = jax.lax.axis_index(axis)
     n_shards = jax.lax.axis_size(axis)
@@ -629,66 +560,17 @@ def _sharded_scan_t(model: Model, params: Tree, data: TimeSeries,
     dtype = x_t.dtype
     wn0 = jnp.full((local_n,), 1.0 / n_total, dtype=dtype)
 
-    if fused_propagate:
-        from ..inference.filter import _kernel_block
-        from ..ops.resample_kernel import propagate_weights_t
-        sde = model.sde
-        sp = model.sde_params(params)
-        d_pad = (-d) % 8
-        wspec = model.obs.kernel_log_density()
-        weighted = wspec is not None
-        if weighted:
-            make_consts, _ = wspec
-            obs_scale = model.obs_scale(params)
-            dk = d + (d_pad if d_pad else 8)
-            wrow = dk - 1
-        else:
-            dk = d + d_pad
-            wrow = None
-        kblock = _kernel_block(local_n)
-        # one random base per (invocation, shard); per-step seeds derived
-        # from the step index (distinct within the scan, see
-        # filter._step_seed -- sampled per-step seeds risk birthday
-        # collisions between steps)
-        from ..inference.filter import _seed_base, _step_seed
-        seed_base = _seed_base(
-            jax.random.fold_in(jax.random.fold_in(key, 0x5eed), idx))
-
     def step(carry, inp):
         x_t, wn, t_prev, ll, ess = carry
-        t, y, mask, k, si = inp
+        t, y, mask, k = inp
         k_prop = jax.random.fold_in(jax.random.fold_in(k, 1), idx)
         k_sys = jax.random.fold_in(k, 2)    # shared across shards
         k_save = jax.random.fold_in(k, 3)   # shared across shards
 
         y_safe = jnp.where(mask, y, 0.0)
-        if fused_propagate:
-            a, bb, q = sde.transition_coeffs(sp, t - t_prev)
-            cols = [a, bb, jnp.sqrt(q)]
-            consts = None
-            if weighted:
-                cols.append(model.design_vector(t))
-                consts = make_consts(y_safe, obs_scale)
-            coef = jnp.stack(cols, axis=1).astype(dtype)
-            if dk > d:
-                coef = jnp.concatenate(
-                    [coef, jnp.zeros((dk - d, len(cols)), dtype)], axis=0)
-            seed = _step_seed(seed_base, si)
-            xp = (jnp.concatenate([x_t, jnp.zeros((dk - d, local_n), dtype)],
-                                  axis=0) if dk > d else x_t)
-            x1p = propagate_weights_t(
-                xp, coef, seed, block=kblock,
-                weight_family=model.obs if weighted else None,
-                weight_consts=consts, weight_row=wrow)
-            x1 = x1p[:d]
-            if weighted:
-                logw = x1p[wrow]
-            else:
-                logw = model.log_density(params, model.f_t(x1, t), y_safe)
-        else:
-            x1 = model.step_t(params, k_prop, x_t, t - t_prev)
-            gamma = model.f_t(x1, t)
-            logw = model.log_density(params, gamma, y_safe)
+        x1 = model.step_t(params, k_prop, x_t, t - t_prev)
+        gamma = model.f_t(x1, t)
+        logw = model.log_density(params, gamma, y_safe)
         logw = jnp.where(mask, logw, 0.0)
 
         maxw = pmax_(jnp.max(logw))
@@ -708,8 +590,7 @@ def _sharded_scan_t(model: Model, params: Tree, data: TimeSeries,
         def yes(args):
             x_, w_ = args
             x2 = distributed_systematic_resample_t(
-                x_, w_, k_sys, axis, sync_axes=sync_axes,
-                pallas_fill=pallas_fill)
+                x_, w_, k_sys, axis, sync_axes=sync_axes)
             return x2, jnp.full((local_n,), 1.0 / n_total, dtype=dtype)
 
         x2, wn2 = jax.lax.cond(do_resample, yes, lambda a: a, (x1, wn1))
@@ -718,24 +599,21 @@ def _sharded_scan_t(model: Model, params: Tree, data: TimeSeries,
         return (x2, wn2, t, ll1, ess1), out
 
     keys = jax.random.split(k_scan, data.ts.shape[0])
-    steps = jnp.arange(data.ts.shape[0], dtype=jnp.int32)
     t_start = data.ts[0] if t0 is None else jnp.asarray(t0, dtype)
     init = (x_t, wn0, t_start, jnp.asarray(0.0, dtype),
             jnp.asarray(n_total, jnp.int32))
     (xf_t, _, _, ll, _), (saved, ll_hist, ess_hist) = jax.lax.scan(
-        step, init, (data.ts, data.ys, data.mask, keys, steps))
+        step, init, (data.ts, data.ys, data.mask, keys))
     return ll, ll_hist, ess_hist, xf_t.T, saved
 
 
 @partial(jax.jit, static_argnames=("model", "n_particles", "mesh", "axis",
                                    "store", "ess_threshold", "interval",
                                    "resample_comm", "init_is_cloud",
-                                   "transposed", "pallas_fill",
-                                   "fused_propagate"))
+                                   "transposed"))
 def _sharded_filter_impl(model, params, data, n_particles, key, x_init, t0,
                          mesh, axis, store, ess_threshold, interval,
-                         resample_comm, init_is_cloud, transposed=False,
-                         pallas_fill=None, fused_propagate=False):
+                         resample_comm, init_is_cloud, transposed=False):
     n_shards = mesh.shape[axis]
     if n_particles % n_shards:
         raise ValueError(
@@ -747,9 +625,7 @@ def _sharded_filter_impl(model, params, data, n_particles, key, x_init, t0,
             return _sharded_scan_t(model, p, d, local_n, k, axis,
                                    x_init=xi, t0=t, store=store,
                                    ess_threshold=ess_threshold,
-                                   interval=interval,
-                                   pallas_fill=pallas_fill,
-                                   fused_propagate=fused_propagate)
+                                   interval=interval)
     else:
         def body(p, d, k, t, xi):
             return _sharded_scan(model, p, d, local_n, k, axis,
@@ -786,29 +662,15 @@ def sharded_bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
                              ess_threshold: Optional[float] = None,
                              interval: float = 0.975,
                              resample_comm: str = "distributed",
-                             transposed: Optional[bool] = None,
-                             pallas_fill: Optional[bool] = None,
-                             fused_propagate: bool = False):
-    """Multi-chip :func:`~..inference.filter.bootstrap_filter`: same API
+                             transposed: bool = False):
+    """Multi-device :func:`~..inference.filter.bootstrap_filter`: same API
     surface and semantics, particle axis sharded over ``mesh[axis]``.
 
     ``resample_comm``: 'distributed' (ppermute ring, default) or
     'allgather' (round-1 baseline, for cross-checking).
 
-    ``transposed``: run the scan in [d, local_n] layout with the Pallas
-    merge-gather kernel as the local resampling fill (the on-chip fast
-    path, as the single-device ``resample='systematic-pallas'``).  Default
-    auto: TPU backend, 1024-divisible shard size, distributed resampling.
-    ``pallas_fill`` force-enables/disables the kernel fill inside the
-    transposed path (testing hook; default auto).
-
-    ``fused_propagate``: run the per-step propagation through the
-    standalone fused propagate(+weights) Pallas kernel (in-kernel
-    Box-Muller noise; statistically -- not bitwise -- equivalent to the
-    XLA propagate).  Requires the transposed path, a TPU backend, and a
-    model with exact transitions; the single-device spelling is
-    ``bootstrap_filter(..., resample='systematic-pallas-fused',
-    mesh=...)``.
+    ``transposed``: run the scan in [d, local_n] layout (particle axis
+    last); default the [local_n, d] layout.
 
     Returns a :class:`~..inference.filter.FilterResult`; ``final_particles``
     keeps its global sharding.
@@ -819,41 +681,16 @@ def sharded_bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
     if resample_comm not in ("distributed", "allgather"):
         raise ValueError(
             f"resample_comm={resample_comm!r}: 'distributed' or 'allgather'")
-    if (fused_propagate and mesh.shape[axis] == 1
-            and store in ("ll", None) and ess_threshold is None
-            and resample_comm == "distributed"
-            and n_particles % 1024 == 0):
-        # n_shards == 1 fast path: the distributed step pays a separate
-        # propagate(+weights) kernel round-trip per step because the ring
-        # fill assembles each shard's output across several launches -- but
-        # a 1-wide particle axis has no ring, so delegate to the
-        # single-device fully fused pipeline (resample + propagate + next
-        # weights in ONE kernel, ~20% faster at N=2^20; statistically
-        # equivalent, different PRNG stream).  Multi-shard keeps the
-        # per-shard fused propagate below.
-        from ..inference.filter import bootstrap_filter
-        return bootstrap_filter(
-            model, params, data, n_particles, key, t0=t0,
-            initial_state=initial_state, store=store or "ll",
-            resample="systematic-pallas-fused", interval=interval)
-    local_n = n_particles // max(mesh.shape[axis], 1)
-    if transposed is None:
-        transposed = auto_transposed(local_n, resample_comm)
     if transposed and resample_comm != "distributed":
         raise ValueError("transposed=True requires resample_comm="
                          f"'distributed' (got {resample_comm!r})")
-    if fused_propagate and not transposed:
-        raise ValueError(
-            "fused_propagate=True requires the transposed path (TPU "
-            "backend with a 1024-divisible shard size, or transposed=True)")
     x_init = None if initial_state is None else jnp.asarray(initial_state)
     init_is_cloud = x_init is not None and x_init.ndim == 2
     t0v = data.ts[0] if t0 is None else jnp.asarray(t0, data.ts.dtype)
     ll, ll_hist, ess_hist, xf, saved = _sharded_filter_impl(
         model, params, data, n_particles, key, x_init, t0v, mesh, axis,
         store, ess_threshold, interval, resample_comm, init_is_cloud,
-        transposed=transposed, pallas_fill=pallas_fill,
-        fused_propagate=fused_propagate)
+        transposed=transposed)
 
     summary = None
     path = None

@@ -1,10 +1,10 @@
-"""PMMH over a (chains x particles) TPU mesh.
+"""PMMH over a (chains x particles) device mesh.
 
 Chains are data-parallel over the ``chains`` mesh axis (one chain per mesh
-row -- the TPU-native replacement for the reference's two-thread
-``mapAsync(2)`` chain parallelism, DetermineParameters.scala:68-69); each
-chain's inner particle filter shards its particle cloud over the
-``particles`` axis with ICI collectives (see :mod:`.sharded_filter`).
+row -- the replacement for the reference's two-thread ``mapAsync(2)``
+chain parallelism, DetermineParameters.scala:68-69); each chain's inner
+particle filter shards its particle cloud over the ``particles`` axis with
+collectives (see :mod:`.sharded_filter`).
 
 Everything -- proposals, the PF sweep, the accept/reject step -- lives in one
 jitted ``lax.scan`` inside one ``shard_map``; iterations never leave the
@@ -28,7 +28,7 @@ from ..models.model import Model
 from ..models.tree import Tree
 from ..utils.data import TimeSeries
 from .mesh import CHAIN_AXIS, PARTICLE_AXIS
-from .sharded_filter import _sharded_scan, _sharded_scan_t, auto_transposed
+from .sharded_filter import _sharded_scan, _sharded_scan_t
 
 _INIT_LL = -1e30
 
@@ -163,9 +163,9 @@ def sharded_pmmh(model: Model, init_params: Tree, data: TimeSeries,
                  store_state: bool = False,
                  init_state: PmmhState | None = None,
                  return_state: bool = False,
-                 transposed: bool | None = None) -> PmmhResult:
-    """Run ``mesh.shape['chains']`` PMMH chains, each with an
-    ICI-sharded particle filter.  Result axes: [n_chains, n_iters, ...].
+                 transposed: bool = False) -> PmmhResult:
+    """Run ``mesh.shape['chains']`` PMMH chains, each with a
+    particle-sharded filter.  Result axes: [n_chains, n_iters, ...].
 
     Mirrors the single-device tier (:func:`..inference.pmmh.pmmh`):
     ``approx`` re-evaluates the current parameters' likelihood every
@@ -182,9 +182,8 @@ def sharded_pmmh(model: Model, init_params: Tree, data: TimeSeries,
     per-chain state for chunked/checkpointed runs
     (:func:`sharded_pmmh_monitored`).
 
-    ``transposed``: run each chain's filter in the [d, local_n] fast
-    layout with Pallas local resampling fills (default auto: TPU backend
-    and 1024-divisible shard size; see sharded_filter)."""
+    ``transposed``: run each chain's filter in the [d, local_n] layout
+    (see sharded_filter)."""
     if init_state is None:
         model.validate_params(init_params)
         init_state = sharded_initial_state(
@@ -203,9 +202,6 @@ def sharded_pmmh(model: Model, init_params: Tree, data: TimeSeries,
         # latent carry (the MH step would otherwise tree_map an array
         # against () and die with an obscure TypeError)
         init_state = dataclasses.replace(init_state, state=())
-    if transposed is None:
-        local_n = n_particles // max(mesh.shape[PARTICLE_AXIS], 1)
-        transposed = auto_transposed(local_n)
     result, final = _sharded_pmmh_impl(
         model, init_state, data, n_particles, key, n_iters, mesh, proposal,
         prior, log_transition, transposed=transposed, approx=approx,
@@ -224,7 +220,7 @@ def sharded_adaptive_pmmh(model: Model, init_params: Tree, data: TimeSeries,
                           prior: Callable = flat_prior,
                           log_transition: Callable = symmetric_transition,
                           approx: bool = False,
-                          transposed: bool | None = None,
+                          transposed: bool = False,
                           return_pilot: bool = False):
     """Two-phase adaptive PMMH over the chain mesh (the mesh tier of
     :func:`..inference.pmmh.adaptive_pmmh`).

@@ -244,7 +244,7 @@ def write_posterior_json(path: str, result) -> None:
     accs = np.asarray(result.accepted)
     # convert device leaves to host numpy ONCE: indexing jax arrays per
     # iteration would issue a device dispatch per leaf per row (~minutes
-    # for a 100k-iteration chain over a remote-TPU link)
+    # for a 100k-iteration chain)
     params_np = jax.tree_util.tree_map(np.asarray, result.params)
     n = lls.shape[0]
     with open(path, "w") as f:

@@ -1,7 +1,7 @@
 """Streaming / online tooling: chunked filters, monitored + checkpointed PMMH.
 
 The reference expresses online filtering and MCMC experiment plumbing as Akka
-Streams stages (Streaming.scala:14-242).  TPU-native equivalents:
+Streams stages (Streaming.scala:14-242).  The equivalents here:
 
 * :class:`OnlineFilter` -- an unbounded stream becomes host-fed chunks, each
   processed by one jitted ``lax.scan`` with the particle cloud carried

@@ -14,6 +14,8 @@ import jax
 
 sys.path.insert(0, ".")
 import composablestatespacemodels_tpu as cssm
+from composablestatespacemodels_tpu.utils.compile_cache import (
+    configure_compile_cache)
 from composablestatespacemodels_tpu.models import perturb
 from composablestatespacemodels_tpu.utils import io as cio
 from composablestatespacemodels_tpu.utils.streaming import pmmh_monitored
@@ -37,18 +39,14 @@ def main():
                          "covariance -> MVN-eigen main chain "
                          "(Parameters.scala:111-123 + Utilities.scala:11-18 "
                          "workflow)")
-    ap.add_argument("--fused-sweep", action="store_true",
-                    help="evaluate all chains' likelihoods with the fused "
-                         "PF sweep kernel (ops/sweep_kernel; TPU, "
-                         "n_particles <= 128, exact-transition models) -- "
-                         "the fast path for --chains at MCMC shapes")
     ap.add_argument("--mesh", action="store_true",
                     help="run chains over a (chains x particles) device "
                          "mesh (parallel.sharded_pmmh tier: each chain's "
-                         "filter shards its cloud over ICI); combines with "
+                         "filter shards its cloud); combines with "
                          "--adaptive and --chains")
     add_common_args(ap)
     args = ap.parse_args()
+    configure_compile_cache()
     cfg = config_from_args(args)
     model, params = test_model()
 
@@ -66,7 +64,7 @@ def main():
         # DetermineParameters.scala:22-45)
         out = cssm.pilot_run(model, params, data, key,
                              particle_counts=(100, 200, 500, 1000, 2000),
-                             n_reps=100, fused_sweep=args.fused_sweep)
+                             n_reps=100)
         print("n_particles, mean_ll, var_ll")
         for n, m, v in out:
             print(f"{n}, {m:.3f}, {v:.3f}")
@@ -102,11 +100,8 @@ def main():
             cio.write_posterior_json(f"{cfg.out}_posterior_{c}.json", chain)
         print(f"acceptance rates: {res.acceptance_rate()}")
     elif args.chains > 1:
-        pf_all = (cssm.make_pf_loglik_chains(model, data, cfg.n_particles)
-                  if args.fused_sweep else None)
         res = cssm.pmmh_chains(key, params, pf_ll, perturb(args.delta),
-                               cfg.n_iters, args.chains,
-                               pf_ll_chains=pf_all)
+                               cfg.n_iters, args.chains)
         for c in range(args.chains):
             chain = jax.tree_util.tree_map(lambda x: x[c], res)
             cio.write_posterior_json(f"{cfg.out}_posterior_{c}.json", chain)

@@ -12,6 +12,8 @@ import jax
 
 sys.path.insert(0, ".")
 import composablestatespacemodels_tpu as cssm
+from composablestatespacemodels_tpu.utils.compile_cache import (
+    configure_compile_cache)
 from composablestatespacemodels_tpu.utils import io as cio
 from examples.common import add_common_args, config_from_args, test_model
 
@@ -23,9 +25,10 @@ def main():
                     help="also write a filtered-ribbon PNG (R/Plots.R:58-75)")
     ap.add_argument("--mesh", action="store_true",
                     help="shard the particle cloud over all devices "
-                         "(distributed systematic resampling over ICI)")
+                         "(distributed systematic resampling)")
     add_common_args(ap)
     args = ap.parse_args()
+    configure_compile_cache()
     cfg = config_from_args(args)
 
     mesh = None

@@ -12,6 +12,8 @@ import jax
 
 sys.path.insert(0, ".")
 import composablestatespacemodels_tpu as cssm
+from composablestatespacemodels_tpu.utils.compile_cache import (
+    configure_compile_cache)
 from examples.common import add_common_args, config_from_args, test_model
 
 
@@ -21,6 +23,7 @@ def main():
     ap.add_argument("--knock-hi", type=float, default=450.0)
     add_common_args(ap)
     args = ap.parse_args()
+    configure_compile_cache()
     cfg = config_from_args(args)
     key = jax.random.PRNGKey(cfg.seed)
 

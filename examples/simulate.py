@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 import composablestatespacemodels_tpu as cssm
+from composablestatespacemodels_tpu.utils.compile_cache import (
+    configure_compile_cache)
 from composablestatespacemodels_tpu.models import ou_params, parameters
 from composablestatespacemodels_tpu.utils import io as cio
 from examples.common import add_common_args, config_from_args, test_model
@@ -26,6 +28,7 @@ def main():
                     help="also write a PNG figure (R/Plots.R analogue)")
     add_common_args(ap)
     args = ap.parse_args()
+    configure_compile_cache()
     cfg = config_from_args(args)
     key = jax.random.PRNGKey(cfg.seed)
 

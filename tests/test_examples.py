@@ -14,6 +14,13 @@ import pytest
 ROOT = pathlib.Path(__file__).parent.parent
 
 
+@pytest.fixture(autouse=True)
+def _no_cache_config(monkeypatch):
+    # the examples configure the compile cache; with the variable set the
+    # helper leaves this test process's JAX config untouched
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(ROOT / ".jax_cache"))
+
+
 def run_example(script, argv, monkeypatch):
     monkeypatch.setattr(sys, "argv", [script] + argv)
     monkeypatch.syspath_prepend(str(ROOT))

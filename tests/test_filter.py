@@ -192,27 +192,6 @@ def test_filter_under_x64(key):
         np.testing.assert_allclose(float(ll), float(kf.ll), rtol=0.05)
 
 
-def test_kernel_step_seeds_distinct_and_deterministic(key):
-    """The fused kernels' Mosaic PRNG seeds are derived from the step
-    index, not sampled per step: distinct within any scan by construction
-    (no birthday collisions over T steps) and reproducible given
-    (key, step)."""
-    from composablestatespacemodels_tpu.inference.filter import (_seed_base,
-                                                                 _step_seed)
-
-    base = _seed_base(key)
-    assert base.shape == (1,) and base.dtype == jnp.int32
-    steps = jnp.arange(100_000, dtype=jnp.int32)
-    seeds = jax.vmap(lambda s: _step_seed(base, s)[0])(steps)
-    assert len(np.unique(np.asarray(seeds))) == steps.shape[0]
-    # deterministic given the key
-    np.testing.assert_array_equal(np.asarray(_seed_base(key)),
-                                  np.asarray(base))
-    np.testing.assert_array_equal(
-        np.asarray(jax.vmap(lambda s: _step_seed(base, s)[0])(steps)),
-        np.asarray(seeds))
-
-
 def test_ess_threshold_summary_unbiased(lg_case):
     """With ess_threshold, skipped resamples leave carried weights
     non-uniform; summaries must weight the cloud or they are biased
@@ -318,3 +297,58 @@ def test_weighted_quantile_nonuniform_exact(key):
     # p=1.0 with a zero-weight max: largest positive-weight value
     pos = v[order][wn[order] > 0]
     assert got[3] == np.float32(pos[-1])
+
+
+@pytest.mark.parametrize("store", ["summary", "path", "ll"])
+@pytest.mark.parametrize("scheme", ["systematic", "stratified",
+                                    "multinomial", "residual"])
+def test_scheme_and_store_match_kalman(lg_case, scheme, store):
+    """Every resampling scheme under every store mode agrees with the
+    exact Kalman filter: the log-likelihood within 3 MC sd (sd of one
+    estimate over 4 seeds), plus the store's own output."""
+    model, params, data, kf = lg_case
+    keys = jax.random.split(jax.random.PRNGKey(11), 4)
+    res = jax.vmap(lambda k: bootstrap_filter(
+        model, params, data, 2000, k, resample=scheme, store=store))(keys)
+    lls = np.asarray(res.ll)
+    assert abs(lls.mean() - float(kf.ll)) < 3.0 * lls.std(ddof=1) + 0.05
+    kf_mean = np.asarray(kf.means[:, 0])
+    kf_sd = np.sqrt(np.asarray(kf.covs[:, 0, 0]))
+    if store == "summary":
+        err = np.abs(np.asarray(res.summary.state_mean[0, :, 0]) - kf_mean)
+        assert (err / kf_sd).mean() < 0.15
+    elif store == "path":
+        # one particle per step from the filtering distribution: about
+        # E|N(0, 1)| = 0.8 posterior sd from the Kalman mean on average
+        z = np.abs(np.asarray(res.sampled_path[:, :, 0]) - kf_mean) / kf_sd
+        assert res.sampled_path.shape == (4, data.ts.shape[0], 1)
+        assert 0.4 < z.mean() < 1.3, z.mean()
+    else:
+        assert res.summary is None and res.sampled_path is None
+
+
+# the scheme names of the retired kernel tier, e.g. 'systematic-' + 'pallas'
+_RETIRED = [f"{s}-{k}" for s, k in (("systematic", "pallas"),
+                                    ("stratified", "pallas"),
+                                    ("systematic", "pallas-fused"))]
+
+
+@pytest.mark.parametrize("entry", ["bootstrap_filter", "mesh", "lgcp"])
+@pytest.mark.parametrize("name", _RETIRED)
+def test_removed_scheme_names_raise(lg_case, name, entry):
+    """Scheme names of the retired kernel tier are unknown names: the
+    ValueError lists the valid schemes."""
+    from composablestatespacemodels_tpu import lgcp_filter
+    from composablestatespacemodels_tpu.parallel import particle_mesh
+
+    model, params, data, _ = lg_case
+    with pytest.raises(ValueError, match="choose from") as err:
+        if entry == "lgcp":
+            lgcp_filter(model, params, data, 64, jax.random.PRNGKey(0),
+                        resample=name)
+        else:
+            bootstrap_filter(model, params, data, 64, jax.random.PRNGKey(0),
+                             resample=name,
+                             mesh=particle_mesh() if entry == "mesh" else None)
+    for valid in ("systematic", "stratified", "multinomial", "residual"):
+        assert valid in str(err.value)

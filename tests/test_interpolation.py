@@ -111,7 +111,7 @@ def test_interpolation_summary_store_rejects_bad_mode(gap_case, key):
 
 
 def test_interpolation_memory_bound_matches_arrays():
-    """The documented HBM bound (interpolation_filter docstring) counts
+    """The documented memory bound (interpolation_filter docstring) counts
     exactly the history arrays the filter materialises (VERDICT r4 #10)."""
     import jax
     import jax.numpy as jnp

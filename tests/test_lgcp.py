@@ -147,24 +147,6 @@ def test_lgcp_filter_matches_old_padded_semantics(lgcp_model, key):
     assert np.std(lls) < 0.5, lls
 
 
-def test_lgcp_filter_pallas_resample_matches(lgcp_model, key):
-    """The 'systematic-pallas' LGCP resampling path is bit-identical to
-    'systematic' for the same key (same closed-form counts)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    model, params = lgcp_model
-    ts = jnp.asarray([0.0, 0.4, 0.9, 1.0, 2.2])
-    data = TimeSeries(ts, jnp.ones_like(ts), jnp.ones(ts.shape, dtype=bool))
-    with pltpu.force_tpu_interpret_mode():
-        res_p = lgcp_filter(model, params, data, 1024, key, precision=1,
-                            resample="systematic-pallas")
-    res_s = lgcp_filter(model, params, data, 1024, key, precision=1)
-    np.testing.assert_allclose(np.asarray(res_p.ll), np.asarray(res_s.ll),
-                               rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(res_p.final_particles),
-                                  np.asarray(res_s.final_particles))
-
-
 def test_lgcp_filter_mesh_matches_single_device(lgcp_model, key):
     """mesh= LGCP filter agrees with the single-device filter to MC error
     (different per-shard propagation key streams, same semantics)."""

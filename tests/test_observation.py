@@ -144,60 +144,3 @@ def test_lgcp_raises():
     fam = obs.LogGaussianCox()
     with pytest.raises(NotImplementedError):
         fam.log_density(gammaize(0.0), gammaize(1.0), None)
-
-
-def test_lgamma_f32_vs_gammaln():
-    """The Mosaic-lowerable Stirling lgamma (Beta's in-kernel hook) agrees
-    with jax.scipy gammaln to f32 ulps across (0, inf)."""
-    from jax.scipy.special import gammaln
-    from composablestatespacemodels_tpu.models.observation import _lgamma_f32
-
-    x = jnp.concatenate([
-        jnp.logspace(-4, 4, 500, dtype=jnp.float32),
-        jnp.linspace(0.01, 20.0, 500, dtype=jnp.float32)])
-    got = np.asarray(_lgamma_f32(x))
-    want = np.asarray(gammaln(x))   # f32 gammaln reference (x64 is off)
-    np.testing.assert_allclose(got, want, rtol=3e-6, atol=3e-6)
-
-
-def test_beta_kernel_hook_matches_log_density(key):
-    """Beta's kernel_log_density (VERDICT r4 #6): the in-kernel fn with
-    host-side consts reproduces log_density within f32 tolerance, so Beta
-    models ride the fused filter and sweep tiers like every other
-    pointwise family (Model.scala:339-353)."""
-    from composablestatespacemodels_tpu.models.observation import Beta
-
-    fam = Beta()
-    make_consts, fn = fam.kernel_log_density()
-    gammas = jnp.linspace(-4.0, 4.0, 201)  # a = exp(-gamma) in [0.018, 55]
-    for y in (0.05, 0.37, 0.9):
-        for scale in (0.5, 1.0, 3.0):
-            c = make_consts(jnp.asarray(y), jnp.asarray(scale))
-            got = np.asarray(fn(gammas, c))
-            want = np.asarray(fam.log_density(gammas, y, scale))
-            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
-                                       err_msg=f"y={y} scale={scale}")
-
-
-def test_beta_fused_paths_interpret(key):
-    """A Beta model runs the fused-weight filter path and the sweep tier
-    in interpret mode (structure only; on-chip agreement is gated in
-    tests_tpu)."""
-    from jax.experimental.pallas import tpu as pltpu
-    import composablestatespacemodels_tpu as cssm
-    from composablestatespacemodels_tpu.models import (brownian_motion,
-                                                       brownian_params,
-                                                       parameters)
-
-    model = cssm.beta(brownian_motion(1))
-    params = parameters(jnp.log(2.0), brownian_params(0.1, 0.1, 0.2))
-    sim = cssm.simulate_regular(model, params, jax.random.PRNGKey(0), 12,
-                                dt=1.0)
-    data = sim.to_timeseries()
-    pf_all = cssm.make_pf_loglik_chains(model, data, 64)
-    params_b = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(jnp.asarray(x)[None],
-                                   (8,) + jnp.shape(x)), params)
-    with pltpu.force_tpu_interpret_mode():
-        ll = pf_all(key, params_b)
-    assert ll.shape == (8,) and bool(jnp.isfinite(ll).all())

@@ -301,7 +301,7 @@ def test_metrop_states_json_roundtrip(tmp_path, lg_setup, key):
 def test_store_state_requires_state_evaluator(key):
     """store_state=True with an evaluator that returns a bare ll must
     raise a clear ValueError (round-5 review finding), on both the
-    single-chain and fused-chains tiers."""
+    single-chain and vmapped-chains tiers."""
     import composablestatespacemodels_tpu as cssm
     from composablestatespacemodels_tpu.models import (brownian_motion,
                                                        brownian_params,
@@ -314,10 +314,9 @@ def test_store_state_requires_state_evaluator(key):
     pf_ll = cssm.make_pf_loglik(model, data, 32)          # no store_state
     with pytest.raises(ValueError, match="store_state"):
         cssm.pmmh(key, p0, pf_ll, perturb(0.02), 3, store_state=True)
-    pf_all = cssm.make_pf_loglik_chains(model, data, 64)  # no store_state
     with pytest.raises(ValueError, match="store_state"):
-        cssm.pmmh_chains(key, p0, None, perturb(0.02), 3, 8,
-                         pf_ll_chains=pf_all, store_state=True)
+        cssm.pmmh_chains(key, p0, pf_ll, perturb(0.02), 3, 8,
+                         store_state=True)
 
 
 def test_store_state_checkpoint_resumed_without_flag(key):
@@ -341,3 +340,42 @@ def test_store_state_checkpoint_resumed_without_flag(key):
     cont = cssm.pmmh(key, p0, pf_plain, perturb(0.02), 3, init_state=fin)
     assert cont.states is None
     assert bool(jnp.isfinite(cont.lls).all())
+
+
+def _family_case(family):
+    import composablestatespacemodels_tpu as cssm
+
+    sde = brownian_motion(1)
+    if family == "gaussian":
+        model = cssm.linear(sde)
+        p0 = parameters(jnp.log(0.5), brownian_params(0.2, 0.25, 0.3))
+    elif family == "poisson":
+        model = cssm.poisson(sde)
+        p0 = parameters(None, brownian_params(0.5, 0.2, 0.2))
+    else:
+        model = cssm.negative_binomial(sde)
+        p0 = parameters(jnp.log(3.0), brownian_params(0.5, 0.2, 0.2))
+    sim = simulate_regular(model, p0, jax.random.PRNGKey(1), 24, dt=0.5)
+    # masked steps: a block of missing observations mid-series
+    data = sim.to_timeseries().knock_out(4.0, 6.0)
+    return model, p0, data
+
+
+@pytest.mark.parametrize("family", ["gaussian", "poisson",
+                                    "negative_binomial"])
+@pytest.mark.parametrize("n_particles", [100, 256, 300, 512])
+def test_pmmh_chains_match_looped_pmmh(family, n_particles, key):
+    """pmmh_chains (one vmapped program) reproduces the same chains run
+    one at a time with pmmh under the per-chain keys it splits."""
+    model, p0, data = _family_case(family)
+    assert not bool(jnp.all(data.mask))
+    pf_ll = pm.make_pf_loglik(model, data, n_particles)
+    n_chains, n_iters = 2, 6
+    res = pm.pmmh_chains(key, p0, pf_ll, perturb(0.02), n_iters, n_chains)
+    for c, k in enumerate(jax.random.split(key, n_chains)):
+        one = pm.pmmh(k, p0, pf_ll, perturb(0.02), n_iters)
+        np.testing.assert_array_equal(np.asarray(res.accepted[c]),
+                                      np.asarray(one.accepted))
+        np.testing.assert_allclose(np.asarray(res.lls[c]),
+                                   np.asarray(one.lls), rtol=1e-5)
+    assert bool(jnp.isfinite(res.lls).all())

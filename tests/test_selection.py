@@ -57,32 +57,3 @@ def test_sharded_reduction_equivalence(key):
                     out_specs=P(), check_vma=False)(vals)
     want = jnp.sort(vals, axis=1)[:, jnp.asarray([0, 64, 128 * n_dev - 1])]
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_transposed_summary_store_matches_flat(key):
-    """The transposed filter's bisection summaries agree with the flat
-    path's sort-based summaries (same key => same particle clouds)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from composablestatespacemodels_tpu import (bootstrap_filter, linear,
-                                                simulate_regular)
-    from composablestatespacemodels_tpu.models import (brownian_motion,
-                                                       brownian_params,
-                                                       parameters)
-
-    model = linear(brownian_motion(1))
-    params = parameters(jnp.log(0.5), brownian_params(0.0, 1.0, 0.4))
-    sim = simulate_regular(model, params, key, 15)
-    data = sim.to_timeseries()
-    with pltpu.force_tpu_interpret_mode():
-        res_p = bootstrap_filter(model, params, data, 1024, key,
-                                 resample="systematic-pallas",
-                                 store="summary")
-    res_s = bootstrap_filter(model, params, data, 1024, key,
-                             resample="systematic", store="summary")
-    for field in ("eta_lower", "eta_upper", "state_lower", "state_upper",
-                  "state_mean", "eta_mean"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(res_p.summary, field)),
-            np.asarray(getattr(res_s.summary, field)),
-            rtol=2e-5, atol=1e-6, err_msg=field)

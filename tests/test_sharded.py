@@ -321,19 +321,17 @@ def test_mesh_front_door_requires_systematic(lg_case, key):
 
 
 # ---------------------------------------------------------------------------
-# transposed (Pallas-fill) sharded fast path
+# transposed [d, local_n] sharded layout
 # ---------------------------------------------------------------------------
-
-from jax.experimental.pallas import tpu as pltpu
 
 from composablestatespacemodels_tpu.parallel.sharded_filter import (
     distributed_systematic_resample_t)
 
 
-def _run_distributed_t(x_t, w, key, mesh, pallas_fill=False):
+def _run_distributed_t(x_t, w, key, mesh):
     fn = shard_map(
         lambda xs, ws: distributed_systematic_resample_t(
-            xs, ws, key, PARTICLE_AXIS, pallas_fill=pallas_fill),
+            xs, ws, key, PARTICLE_AXIS),
         mesh=mesh,
         in_specs=(P(None, PARTICLE_AXIS), P(PARTICLE_AXIS)),
         out_specs=P(None, PARTICLE_AXIS),
@@ -347,29 +345,9 @@ def test_distributed_resample_t_bit_exact(key):
     n, d = 1024, 3
     w = _dyadic_weights(key, n)
     x = jax.random.normal(jax.random.fold_in(key, 1), (n, d))
-    got = _run_distributed_t(x.T, w, key, mesh, pallas_fill=False)
+    got = _run_distributed_t(x.T, w, key, mesh)
     want = x[systematic_indices(key, w)]
     np.testing.assert_array_equal(np.asarray(got.T), np.asarray(want))
-
-
-def test_distributed_resample_t_pallas_fill_bit_exact(key):
-    """Transposed ring resampler with the merge-kernel local fill
-    (interpret mode) vs single-device, incl. a multi-hop degenerate case."""
-    mesh = particle_mesh()
-    n, d = 8192, 3   # local_n = 1024: the kernel's minimum tile
-    with pltpu.force_tpu_interpret_mode():
-        w = _dyadic_weights(key, n)
-        x = jax.random.normal(jax.random.fold_in(key, 1), (n, d))
-        got = _run_distributed_t(x.T, w, key, mesh, pallas_fill=True)
-        want = x[systematic_indices(key, w)]
-        np.testing.assert_array_equal(np.asarray(got.T), np.asarray(want))
-
-        # all offspring on one shard: multiple ppermute hops + the
-        # local-frame count clipping in the kernel fill
-        w1 = jnp.zeros((n,), jnp.float32).at[5].set(1.0)
-        got = _run_distributed_t(x.T, w1, key, mesh, pallas_fill=True)
-        want = x[systematic_indices(key, w1)]
-        np.testing.assert_array_equal(np.asarray(got.T), np.asarray(want))
 
 
 def test_sharded_filter_transposed_matches_flat(lg_case, key):
@@ -381,8 +359,7 @@ def test_sharded_filter_transposed_matches_flat(lg_case, key):
     flat = sharded_bootstrap_filter(model, params, data, n, key, mesh,
                                     store="ll", transposed=False)
     tr = sharded_bootstrap_filter(model, params, data, n, key, mesh,
-                                  store="ll", transposed=True,
-                                  pallas_fill=False)
+                                  store="ll", transposed=True)
     np.testing.assert_allclose(float(tr.ll), float(flat.ll), rtol=1e-6)
     np.testing.assert_array_equal(np.asarray(tr.ess), np.asarray(flat.ess))
     np.testing.assert_array_equal(np.asarray(tr.final_particles),
@@ -396,8 +373,7 @@ def test_sharded_filter_transposed_summary_and_path(lg_case, key):
     flat = sharded_bootstrap_filter(model, params, data, n, key, mesh,
                                     store="summary", transposed=False)
     tr = sharded_bootstrap_filter(model, params, data, n, key, mesh,
-                                  store="summary", transposed=True,
-                                  pallas_fill=False)
+                                  store="summary", transposed=True)
     np.testing.assert_array_equal(np.asarray(tr.summary.state_lower),
                                   np.asarray(flat.summary.state_lower))
     np.testing.assert_array_equal(np.asarray(tr.summary.eta_upper),
@@ -406,35 +382,9 @@ def test_sharded_filter_transposed_summary_and_path(lg_case, key):
                                np.asarray(flat.summary.state_mean),
                                rtol=2e-5, atol=1e-6)
     p = sharded_bootstrap_filter(model, params, data, n, key, mesh,
-                                 store="path", transposed=True,
-                                 pallas_fill=False)
+                                 store="path", transposed=True)
     assert p.sampled_path.shape == (data.ts.shape[0], model.dim)
     assert np.isfinite(np.asarray(p.sampled_path)).all()
-
-
-def test_sharded_fused_propagate_structural(lg_case, key):
-    """mesh= + resample='systematic-pallas-fused': each shard's per-step
-    propagate runs through the standalone fused propagate(+weights) kernel
-    (interpret mode's in-kernel noise is a deterministic constant, so this
-    checks structure and plumbing; statistics are gated on-chip)."""
-    from composablestatespacemodels_tpu import bootstrap_filter
-
-    model, params, data = lg_case
-    mesh = particle_mesh()
-    n = 8192   # local_n = 1024: the kernel's minimum tile
-    with pltpu.force_tpu_interpret_mode():
-        res = bootstrap_filter(model, params, data, n, key,
-                               resample="systematic-pallas-fused",
-                               store="ll", mesh=mesh, pallas_fill=True)
-    assert np.isfinite(float(res.ll))
-    assert res.ess.shape == data.ts.shape
-    assert 1 <= int(jnp.min(res.ess)) <= n
-    # the explicit kwarg spelling is equivalent
-    with pltpu.force_tpu_interpret_mode():
-        res2 = sharded_bootstrap_filter(
-            model, params, data, n, key, mesh, store="ll", transposed=True,
-            pallas_fill=True, fused_propagate=True)
-    np.testing.assert_allclose(float(res2.ll), float(res.ll), rtol=1e-6)
 
 
 def test_forecast_from_sharded_cloud(lg_case, key):
@@ -620,29 +570,6 @@ def test_sharded_pmmh_monitored_store_state_resume(tmp_path, lg_case, key):
     np.testing.assert_array_equal(np.asarray(res3.lls), np.asarray(res1.lls))
     np.testing.assert_array_equal(np.asarray(res3.states[:, :20]),
                                   np.asarray(res2.states))
-
-
-def test_sharded_fused_solo_delegates_to_single_device(lg_case, key):
-    """n_shards == 1 + fused scheme: the mesh tier delegates to the
-    single-device fully fused pipeline (no ring -> no reason to pay the
-    separate propagate kernel round-trip; VERDICT r4 #5), bit-identically
-    to calling bootstrap_filter without a mesh."""
-    from composablestatespacemodels_tpu import bootstrap_filter
-
-    model, params, data = lg_case
-    mesh = make_mesh(1, 1, devices=jax.devices()[:1])
-    n = 1024
-    with pltpu.force_tpu_interpret_mode():
-        solo = bootstrap_filter(model, params, data, n, key,
-                                resample="systematic-pallas-fused",
-                                store="ll")
-        meshed = bootstrap_filter(model, params, data, n, key,
-                                  resample="systematic-pallas-fused",
-                                  store="ll", mesh=mesh)
-    np.testing.assert_array_equal(np.asarray(meshed.ll),
-                                  np.asarray(solo.ll))
-    np.testing.assert_array_equal(np.asarray(meshed.final_particles),
-                                  np.asarray(solo.final_particles))
 
 
 def test_sharded_store_state_checkpoint_resumed_without_flag(lg_case, key):
